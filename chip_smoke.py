@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failed check makes the exit code non-zero and keeps
+the final `{"ok": true, ...}` line from printing:
+  1. report the card (nvidia-smi name and power limit), turn TF32 off for
+     matmuls and cuDNN, build the CUDA kernels from the sources (timed);
+  2. hold each kernel against its plain PyTorch version on the card: the
+     reference test cases plus the full-width llama3.2-3b shapes, each in
+     fp32 (tolerance 2e-5) and bf16 (2e-2);
+  3. serve llama3.2-3b at full width (B=4, 1024-token prompt, 32 new
+     tokens, attn_impl="pallas"): the decode kernel must launch exactly
+     28 layers x 31 steps = 868 times; a plain ("xla") rerun with the same
+     weights, teacher-forced on the served tokens, must match every step's
+     logits at atol = rtol = 1e-3 (fp32 over 28 layers, sums in another
+     order);
+  4. the cache-free forward at full width (B=4, S=1024): exactly 28 flash
+     kernel launches, final hidden state within 1e-3 of the plain forward;
+  5. times with CUDA events (median of >= 20, after warm-up, L2 flushed
+     before each run): each kernel, its plain version and one PyTorch call
+     computing the same function (the `library_ms` yardstick, used nowhere
+     in the port), their lower bounds on the card, prefill and decode.
+Then the `kernels` JSON line, the card line and the final line.
+
+It imports nothing of jax or of the reference package `repro`.
+"""
+from __future__ import annotations
+
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+# H100 SXM, NVIDIA data sheet (dense): device-memory rate and the fp32 rate
+# outside the tensor cores, the type the kernels compute in
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+DEVICE = "cuda"
+ARCH, LAYERS = "llama3.2-3b", 28
+BATCH, PROMPT, NEW = 4, 1024, 32
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+# (b, s_cache, hq, hkv, hd, length): the reference's DECODE_CASES
+# (tests/test_kernels.py), then the llama3.2-3b serving shapes
+DECODE_CASES = [
+    (1, 512, 4, 4, 64, 512), (2, 1024, 8, 2, 64, 700),
+    (1, 2048, 4, 1, 128, 1), (2, 512, 4, 2, 64, 512), (1, 640, 4, 4, 32, 300),
+    (4, 1056, 24, 8, 128, 1), (4, 1056, 24, 8, 128, 1025),
+    (4, 1056, 24, 8, 128, 1056),
+]
+# (b, sq, sk, hq, hkv, hd): the reference's FLASH_CASES, then the
+# llama3.2-3b forward shape
+FLASH_CASES = [
+    (1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64), (1, 384, 384, 4, 1, 32),
+    (1, 200, 200, 4, 2, 64), (2, 128, 128, 4, 4, 128), (1, 512, 512, 2, 2, 16),
+    (4, 1024, 1024, 24, 8, 128),
+]
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def err_within(got, want, tol) -> tuple[float, bool]:
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    ok = bool(torch.all(diff <= tol + tol * want.abs())) and \
+        bool(torch.isfinite(got).all())
+    return float(diff.max()), ok
+
+
+class Smoke:
+    def __init__(self):
+        self.failures: list[str] = []
+        self.results: dict = {}
+
+    def check(self, name: str, ok: bool, detail: str = "") -> None:
+        print(f"[{'ok' if ok else 'FAIL'}] {name} {detail}".rstrip(),
+              flush=True)
+        if not ok:
+            self.failures.append(name)
+
+    def phase(self, name: str, fn) -> None:
+        print(f"== {name}", flush=True)
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except Exception:  # a failed phase is reported, the rest still run
+            traceback.print_exc()
+            self.check(f"{name}: raised", False)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"   {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_setup(smoke: Smoke) -> None:
+    from repro_torch.kernels import _build
+    print(f"card: {card_line()}")
+    print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    libs = _build.build()
+    smoke.results["build_s"] = time.perf_counter() - t0
+    print(f"built {sorted(libs)} in {smoke.results['build_s']:.1f} s")
+    for name, lib in libs.items():
+        log = lib.with_suffix(".log").read_text() \
+            if lib.with_suffix(".log").exists() else ""
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+        print(f"ptxas {name}: {len(regs)} kernels, registers "
+              f"{min(regs, default=0)}..{max(regs, default=0)}, "
+              f"spill stores {max(spills, default=0)} bytes")
+
+
+def _randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+
+def phase_kernels(smoke: Smoke) -> None:
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    for b, s, hq, hkv, hd, length in DECODE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = _randn(gen, (b, hq, hd), dtype)
+            k = _randn(gen, (b, s, hkv, hd), dtype)
+            v = _randn(gen, (b, s, hkv, hd), dtype)
+            got = da.decode_attention(q, k, v, length, scale=hd ** -0.5)
+            want = da.decode_attention_plain(q, k, v, length,
+                                             scale=hd ** -0.5)
+            torch.cuda.synchronize()
+            err, ok = err_within(got, want, TOL[dtype])
+            smoke.check(f"decode_attention b={b} s={s} hq={hq} hkv={hkv} "
+                        f"hd={hd} length={length} {dtype}", ok,
+                        f"max_abs_err={err:.3g}")
+    for b, sq, sk, hq, hkv, hd in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = _randn(gen, (b, sq, hq, hd), dtype)
+            k = _randn(gen, (b, sk, hkv, hd), dtype)
+            v = _randn(gen, (b, sk, hkv, hd), dtype)
+            got = fa.flash_attention(q, k, v, causal=True)
+            want = fa.flash_attention_plain(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            err, ok = err_within(got, want, TOL[dtype])
+            smoke.check(f"flash_attention b={b} sq={sq} sk={sk} hq={hq} "
+                        f"hkv={hkv} hd={hd} {dtype}", ok,
+                        f"max_abs_err={err:.3g}")
+
+
+def _full_cfg(attn_impl):
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get(ARCH)
+    return dataclasses.replace(cfg, param_dtype=torch.float32,
+                               compute_dtype=torch.float32,
+                               kv_dtype=torch.float32, attn_impl=attn_impl)
+
+
+def _params(cfg, seed=0):
+    from repro_torch.models import api
+    return api.init_params(cfg, torch.Generator(device=DEVICE)
+                           .manual_seed(seed))
+
+
+def phase_serve(smoke: Smoke) -> None:
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.serve import ServeRun, serve
+    from repro_torch.models import stack
+    run = ServeRun(arch=ARCH, reduced=False, batch=BATCH, prompt_len=PROMPT,
+                   max_new_tokens=NEW, device=DEVICE, attn_impl="pallas")
+    da.decode_attention.launches = fa.flash_attention.launches = 0
+    out = serve(run)
+    launches = da.decode_attention.launches
+    smoke.results["decode_launches"] = launches
+    smoke.check("serve: decode kernel launches", launches == LAYERS * (NEW - 1),
+                f"{launches} (want {LAYERS * (NEW - 1)})")
+    smoke.check("serve: no flash launches in prefill/decode",
+                fa.flash_attention.launches == 0)
+    tokens, logits = torch.from_numpy(out["tokens"]), out["logits"]
+    cfg = _full_cfg("xla")
+    smoke.check("serve: tokens shape and range",
+                tuple(tokens.shape) == (BATCH, NEW)
+                and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()))
+    smoke.check("serve: logits finite", bool(torch.isfinite(logits).all()))
+
+    # the plain path, same weights and prompt, fed the served tokens
+    params = _params(cfg, run.seed)
+    prompt = out["prompt"]
+    toks = tokens.to(prompt.device, torch.int32)
+    with torch.inference_mode():
+        cache, plain = stack.build_prefill_fn(cfg, PROMPT + NEW)(
+            params, {"tokens": prompt})
+        plain_logits = [plain]
+        decode = stack.build_decode_fn(cfg)
+        for i in range(NEW - 1):
+            cache, _, lg = decode(params, cache, toks[:, i:i + 1], PROMPT + i)
+            plain_logits.append(lg)
+    plain = torch.stack(plain_logits, dim=1)
+    err = float((logits - plain).abs().max())
+    ok = bool(torch.allclose(logits, plain, atol=1e-3, rtol=1e-3))
+    smoke.results["serve"] = {
+        "arch": ARCH, "batch": BATCH, "prompt_len": PROMPT, "new_tokens": NEW,
+        "prefill_s": out["prefill_s"],
+        "decode_tok_per_s": out["decode_tok_per_s"],
+        "decode_launches": launches, "max_abs_logit_err_vs_plain": err}
+    smoke.check("serve: logits vs plain path (atol=rtol=1e-3)", ok,
+                f"max_abs_err={err:.3g}")
+
+
+def phase_forward(smoke: Smoke) -> None:
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import stack
+    cfg_k, cfg_p = _full_cfg("pallas"), _full_cfg("xla")
+    params = _params(cfg_p)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    tokens = torch.randint(0, cfg_p.vocab, (BATCH, PROMPT), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    with torch.inference_mode():
+        fa.flash_attention.launches = 0
+        h, _ = stack.forward(params, cfg_k, {"tokens": tokens})
+        launches = fa.flash_attention.launches
+        h_plain, _ = stack.forward(params, cfg_p, {"tokens": tokens})
+    smoke.results["flash_launches"] = launches
+    smoke.check("forward: flash kernel launches", launches == LAYERS,
+                f"{launches} (want {LAYERS})")
+    err = float((h - h_plain).abs().max())
+    smoke.results["forward"] = {"batch": BATCH, "seq": PROMPT,
+                                "flash_launches": launches,
+                                "max_abs_hidden_err_vs_plain": err}
+    smoke.check("forward: hidden state vs plain path (atol=rtol=1e-3)",
+                bool(torch.isfinite(h).all())
+                and bool(torch.allclose(h, h_plain, atol=1e-3, rtol=1e-3)),
+                f"max_abs_err={err:.3g}")
+
+
+def time_ms(fn, flush, reps=30, warmup=3) -> float:
+    """Median device time of fn() over `reps` runs, CUDA events around each
+    run, the L2 cache flushed (a 256 MB write) before each."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_times(smoke: Smoke) -> None:
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import io, stack
+    flush = torch.empty(64 * 2 ** 20, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    f32 = torch.float32
+    cfg = _full_cfg("pallas")
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = hd ** -0.5
+    kernels = []
+    with torch.inference_mode():
+        # decode: a mid-run step of the serving path
+        s_cache, length = PROMPT + NEW, PROMPT + NEW // 2
+        q = _randn(gen, (BATCH, hq, hd), f32)
+        k = _randn(gen, (BATCH, s_cache, hkv, hd), f32)
+        v = _randn(gen, (BATCH, s_cache, hkv, hd), f32)
+        kq, kk, kv = (q[:, :, None], k[:, :length].transpose(1, 2),
+                      v[:, :length].transpose(1, 2))
+        got = da.decode_attention(q, k, v, length, scale=scale)
+        want = da.decode_attention_plain(q, k, v, length, scale=scale)
+        nbytes = 4 * (2 * BATCH * length * hkv * hd + 2 * BATCH * hq * hd)
+        flops = 4 * BATCH * hq * length * hd
+        kernels.append(_kernel_entry(
+            "decode_attention",
+            "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/decode_attention.py:63",
+            smoke, smoke.results.get("decode_launches"), got, want,
+            time_ms(lambda: da.decode_attention(q, k, v, length, scale=scale),
+                    flush),
+            time_ms(lambda: da.decode_attention_plain(q, k, v, length,
+                                                      scale=scale), flush),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                kq, kk, kv, scale=scale, enable_gqa=True), flush),
+            nbytes, flops,
+            {"b": BATCH, "hq": hq, "hkv": hkv, "hd": hd, "s_cache": s_cache,
+             "length": length, "dtype": "float32"}))
+        # flash: the full-width cache-free forward's attention
+        q = _randn(gen, (BATCH, PROMPT, hq, hd), f32)
+        k = _randn(gen, (BATCH, PROMPT, hkv, hd), f32)
+        v = _randn(gen, (BATCH, PROMPT, hkv, hd), f32)
+        got = fa.flash_attention(q, k, v, causal=True, scale=scale)
+        want = fa.flash_attention_plain(q, k, v, causal=True, scale=scale)
+        nbytes = 4 * (2 * BATCH * PROMPT * hq * hd + 2 * BATCH * PROMPT * hkv * hd)
+        flops = 4 * BATCH * hq * hd * (PROMPT * (PROMPT + 1) // 2)
+        kernels.append(_kernel_entry(
+            "flash_attention",
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:79",
+            smoke, smoke.results.get("flash_launches"), got, want,
+            time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                               scale=scale), flush),
+            time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                                     scale=scale), flush),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, scale=scale, enable_gqa=True), flush),
+            nbytes, flops,
+            {"b": BATCH, "s": PROMPT, "hq": hq, "hkv": hkv, "hd": hd,
+             "dtype": "float32"}))
+        del q, k, v, kq, kk, kv, got, want
+        smoke.results["kernels"] = kernels
+
+        # end to end: prefill and decode steps on the kernel path
+        params = _params(cfg)
+        batch = io.make_batch(cfg, io.smoke_cell("prefill", BATCH, PROMPT),
+                              torch.Generator(device=DEVICE).manual_seed(1))
+        prefill = stack.build_prefill_fn(cfg, PROMPT + NEW)
+        prefill_ms = time_ms(lambda: prefill(params, batch), flush, reps=20,
+                             warmup=2)
+        cache, logits = prefill(params, batch)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        decode = stack.build_decode_fn(cfg)
+        steps = []
+        for i in range(NEW - 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            cache, nxt, _ = decode(params, cache, tok, PROMPT + i)
+            end.record()
+            end.synchronize()
+            steps.append(start.elapsed_time(end))
+            tok = nxt[:, None]
+        step_ms = statistics.median(steps[1:])
+        smoke.results["times"] = {
+            "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "decode_tok_per_s": BATCH * 1e3 / step_ms,
+            "decode_steps_timed": len(steps) - 1}
+
+        # where the time goes: one prefill, then three decode steps
+        def three_steps():
+            c, t = cache, tok
+            for i in range(3):
+                c, n, _ = decode(params, c, t, PROMPT + NEW - 4 + i)
+                t = n[:, None]
+        smoke.results["profile"] = {
+            "prefill": _profile(lambda: prefill(params, batch)),
+            "decode_3_steps": _profile(three_steps)}
+
+
+def _profile(fn) -> dict:
+    """Host wall time of fn() under torch.profiler, the device time its
+    kernels took (one stream, so their sum is the busy time), the idle
+    share, and the kernels that took most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "kernel_calls": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def _kernel_entry(name, source, replaces, smoke, launches, got, want, ms,
+                  plain_ms, library_ms, nbytes, flops, shape):
+    """One entry of the `kernels` line; checks the timed inputs' output
+    against the plain version at the fp32 tolerance."""
+    err, ok = err_within(got, want, TOL[torch.float32])
+    smoke.check(f"{name}: timed inputs vs plain", ok, f"max_abs_err={err:.3g}")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "shape": shape,
+            "bytes": nbytes, "flops": flops}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs one GPU",
+              file=sys.stderr)
+        return 1
+    smoke = Smoke()
+    t0 = time.perf_counter()
+    smoke.phase("1 setup and build", lambda: phase_setup(smoke))
+    smoke.phase("2 kernels vs plain", lambda: phase_kernels(smoke))
+    smoke.phase("3 serve at full width", lambda: phase_serve(smoke))
+    smoke.phase("4 forward at full width", lambda: phase_forward(smoke))
+    smoke.phase("5 times", lambda: phase_times(smoke))
+    r = smoke.results
+    for key in ("serve", "forward", "times", "profile"):
+        if key in r:
+            print(json.dumps({key: r[key]}))
+    print(f"total {time.perf_counter() - t0:.1f} s; "
+          f"failures: {smoke.failures or 'none'}")
+    if smoke.failures or "kernels" not in r:
+        return 1
+    print(json.dumps({"kernels": r["kernels"]}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

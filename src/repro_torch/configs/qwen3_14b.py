@@ -1,0 +1,12 @@
+"""qwen3-14b [dense] — qk_norm, GQA.  [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.models.api import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-14b", family="dense",
+    n_layers=40, d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128,
+    d_ff=17408, vocab=151936, qk_norm=True, rope_theta=1_000_000.0)
+
+REDUCED = ModelConfig(
+    name="qwen3-14b-reduced", family="dense",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+    d_ff=128, vocab=256, qk_norm=True, rope_theta=1_000_000.0)

@@ -1,0 +1,251 @@
+// Decode attention for Hopper (sm_90a): one query token per (batch, q-head)
+// against the model's KV cache, with a valid prefix `length`.
+//
+// Replaces the TPU kernel
+//   repro/kernels/decode_attention/decode_attention.py::decode_attention_bhd
+//   (body _decode_kernel), reached through
+//   repro/kernels/decode_attention/ops.py::decode_attention.
+//
+// What bounds it on the H100: device-memory bytes.  Every valid K and V row
+// is read once and serves only the g = Hq/Hkv query heads of its kv head, so
+// the kernel does about g FLOP per byte, far below the card's fp32 ridge of
+// ~20 FLOP/byte (67 TFLOP/s over 3.35 TB/s).  What the design does about it:
+//   - one CTA per (batch, kv head) holds all g query heads of that kv head,
+//     so each K/V row crosses the memory bus once, not g times;
+//   - the cache is read in place, in the model's [B, S, Hkv, hd] layout,
+//     through strides: no transposed or padded copy of the cache, which would
+//     move the whole cache again at every layer of every token;
+//   - rows at or past `length` are never read;
+//   - each lane loads 16 bytes of a row, a warp covers 32*16 bytes of rows
+//     per step and keeps kUnroll steps in flight, and the running softmax
+//     (m, l, acc) stays in registers in fp32.
+// Known limit: only B*Hkv CTAs (32 at the llama3.2-3b serving shape, on 132
+// SMs).  Splitting the KV range across CTAs with a combine pass
+// (flash-decoding) is queued in ROADMAP B1.
+#include "common.cuh"
+
+namespace {
+
+using namespace repro;
+
+constexpr int kWarps = 8;
+constexpr int kUnroll = 4;
+
+// T: q/cache/out type.  HD: head dim.  G: a bound on g (registers are sized
+// by G, the loops are guarded by the runtime g).
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(kWarps * 32)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ out, int hkv, int g,
+              int length, float scale, int k_sb, int k_ss, int k_sh,
+              int v_sb, int v_ss, int v_sh) {
+  using V = Vec16<T>;
+  constexpr int VEC = V::N;            // elements per lane per row
+  constexpr int LPK = HD / VEC;        // lanes per row
+  constexpr int RPW = 32 / LPK;        // rows per warp step
+  constexpr int SLOTS = kWarps * RPW;  // rows per CTA step
+  static_assert(HD % VEC == 0 && LPK <= 32, "unsupported head dim");
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = lane / LPK;          // which row of the warp step
+  const int part = lane % LPK;         // which 16-byte slice of the row
+  const int slot = warp * RPW + sub;
+  const int hq = hkv * g;
+
+  // this lane's slice of the g query heads, scaled into base 2
+  float qf[G][VEC];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    if (gi < g) {
+      const T* qp = q + ((int64_t)b * hq + kvh * g + gi) * HD + part * VEC;
+      V::to_float(load16(qp), qf[gi]);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qf[gi][e] *= scale * kLog2e;
+    }
+  }
+
+  float m[G], l[G], acc[G][VEC];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    m[gi] = kNegBig;
+    l[gi] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[gi][e] = 0.f;
+  }
+
+  const T* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh + part * VEC;
+  const T* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh + part * VEC;
+
+  for (int base = 0; base < length; base += SLOTS * kUnroll) {
+    // issue every load of the step before using any of them; rows past
+    // `length` re-read the last valid row and are masked below
+    typename V::raw kr[kUnroll], vr[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = min(base + u * SLOTS + slot, length - 1);
+      kr[u] = load16(kb + (int64_t)j * k_ss);
+      vr[u] = load16(vb + (int64_t)j * v_ss);
+    }
+    // scores of the step's rows, reduced over the row's lanes
+    float s[kUnroll][G];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float kf[VEC];
+      V::to_float(kr[u], kf);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) d = fmaf(qf[gi][e], kf[e], d);
+#pragma unroll
+        for (int off = LPK / 2; off > 0; off >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, off);
+        s[u][gi] = d;
+      }
+    }
+    // one online-softmax update for the step's valid rows
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      if (gi >= g) continue;
+      float mn = m[gi];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (base + u * SLOTS + slot < length) mn = fmaxf(mn, s[u][gi]);
+      const float alpha = exp2f(m[gi] - mn);
+      l[gi] *= alpha;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[gi][e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (base + u * SLOTS + slot >= length) continue;
+        const float p = exp2f(s[u][gi] - mn);
+        float vf[VEC];
+        V::to_float(vr[u], vf);
+        l[gi] += p;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[gi][e] = fmaf(p, vf[e], acc[gi][e]);
+      }
+      m[gi] = mn;
+    }
+  }
+
+  // merge the warp's rows-per-step streams (lanes LPK apart)
+#pragma unroll
+  for (int off = LPK; off < 32; off <<= 1) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      if (gi >= g) continue;
+      const float mo = __shfl_xor_sync(0xffffffffu, m[gi], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[gi], off);
+      const float mn = fmaxf(m[gi], mo);
+      const float a = exp2f(m[gi] - mn), c = exp2f(mo - mn);
+      l[gi] = l[gi] * a + lo * c;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[gi][e], off);
+        acc[gi][e] = acc[gi][e] * a + ao * c;
+      }
+      m[gi] = mn;
+    }
+  }
+
+  // merge the warps through shared memory and write [B, Hq, hd]
+  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G];
+  __shared__ float sm_acc[kWarps][G][HD];
+  if (sub == 0) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      if (gi >= g) continue;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sm_acc[warp][gi][part * VEC + e] = acc[gi][e];
+      if (part == 0) {
+        sm_m[warp][gi] = m[gi];
+        sm_l[warp][gi] = l[gi];
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < g * HD; idx += blockDim.x) {
+    const int gi = idx / HD, d = idx % HD;
+    float mx = kNegBig;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][gi]);
+    float lsum = 0.f, asum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = exp2f(sm_m[w][gi] - mx);
+      lsum += sm_l[w][gi] * c;
+      asum += sm_acc[w][gi][d] * c;
+    }
+    store(out + ((int64_t)b * hq + kvh * g + gi) * HD + d,
+          asum / fmaxf(lsum, 1e-30f));
+  }
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  int batch, hkv, g, length;
+  float scale;
+  int k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD, int G>
+cudaError_t launch(const Args& a) {
+  dim3 grid(a.hkv, a.batch);
+  decode_kernel<T, HD, G><<<grid, kWarps * 32, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.hkv, a.g,
+      a.length, a.scale, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss, a.v_sh);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t dispatch_g(const Args& a) {
+  if (a.g <= 1) return launch<T, HD, 1>(a);
+  if (a.g <= 2) return launch<T, HD, 2>(a);
+  if (a.g <= 4) return launch<T, HD, 4>(a);
+  if (a.g <= 8) return launch<T, HD, 8>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_hd(const Args& a, int hd) {
+  switch (hd) {
+    case 16: return dispatch_g<T, 16>(a);
+    case 32: return dispatch_g<T, 32>(a);
+    case 64: return dispatch_g<T, 64>(a);
+    case 128: return dispatch_g<T, 128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, out: [B, Hkv*g, hd] contiguous.  k, v: [B, S, Hkv, hd] with unit stride
+// on hd and the given element strides for b, s and h.  Returns the CUDA
+// error of the launch (0 on success); the kernel runs on `stream`.
+int decode_attention(const void* q, const void* k, const void* v, void* out,
+                     int dtype, int batch, int hkv, int g, int hd, int length,
+                     float scale, int k_sb, int k_ss, int k_sh, int v_sb,
+                     int v_ss, int v_sh, void* stream) {
+  if (batch < 1 || hkv < 1 || g < 1 || length < 1) return cudaErrorInvalidValue;
+  Args a{q, k, v, out, batch, hkv, g, length, scale,
+         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+         static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  if (dtype == kFloat32) err = dispatch_hd<float>(a, hd);
+  else if (dtype == kBFloat16) err = dispatch_hd<__nv_bfloat16>(a, hd);
+  else err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+const char* decode_attention_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,283 @@
+"""Unified model API: configs, the declarative param table and init.
+
+Mirrors `repro/models/api.py`.  Every architecture is a ModelConfig; the
+param table (path -> ParamSpec) is the single source of truth for parameter
+shapes and initializers (every param has `cfg.param_dtype`).  Block params carry a leading `groups`
+axis (one entry per repeat of `layer_plan()`), as in the reference, so a
+converted reference param tree maps across leaf for leaf.
+
+This slice ports the dense family.  The other families raise
+NotImplementedError naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models import layers
+
+# family -> the ROADMAP item that ports it
+_FAMILY_ITEM = {
+    "moe": "A10 (MoE)",
+    "ssm": "A9 (SSM)",
+    "hybrid": "A9/A10 (hybrid SSM + MoE)",
+    "encdec": "A11 (encoder-decoder)",
+    "vlm": "A11 (VLM)",
+}
+
+
+def require_dense(cfg) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet: ROADMAP "
+            f"{_FAMILY_ITEM.get(cfg.family, cfg.family)}")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  CUDA is never silently replaced
+    by the CPU: asking for it on a machine without it raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            f"pass device='cpu' to run on the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Configs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int               # per-expert hidden width
+    every: int = 1          # MoE FFN on every `every`-th layer (1 = all)
+    capacity_factor: float = 1.25
+    impl: str = "dense"     # "dense" | "ep"
+    fsdp_experts: bool = False
+    aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    headdim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    conv_kernel: int = 4
+    chunk: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str             # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int               # dense FFN width (0 for pure-ssm / pure-moe)
+    vocab: int
+    # attention flavour
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    attn_bias: bool = False
+    mlp_kind: str = "swiglu"
+    norm_kind: str = "rms"          # rms | layer
+    tie_embeddings: bool = False
+    # family extensions
+    moe: MoEConfig | None = None
+    ssm: SSMConfig | None = None
+    attn_every: int = 0             # hybrid: 1 attn layer per this many
+    n_enc_layers: int = 0           # encdec
+    enc_seq: int = 1500             # stub audio frontend frames
+    n_patches: int = 0              # vlm stub patches
+    # numerics / impl
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+    kv_dtype: Any = torch.bfloat16
+    attn_impl: str = "xla"          # "xla": plain torch | "pallas": kernel
+    ssd_impl: str = "xla"
+    remat: str = "none"             # none | full | dots
+    loss_chunk: int = 0             # 0 = unchunked final projection
+    max_pos: int = 8192             # learned-pos table size (encdec only)
+    logit_softcap: float = 0.0
+    attn_chunk: int = 0             # q-block size for chunked attention
+    attn_unroll: bool = False       # unroll q-block loop (dry-run cost mode)
+    scan_layers: bool = True
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding tables padded to a multiple of 256 (Megatron-style);
+        cfg.vocab stays the logical vocabulary and padded logit slots are
+        masked to -1e30 in unembed()."""
+        return ((self.vocab + 255) // 256) * 256
+
+    @property
+    def mamba_spec(self):
+        raise NotImplementedError("mamba_spec: ROADMAP A9 (SSM)")
+
+    @property
+    def attn_spec(self) -> layers.AttentionSpec:
+        return layers.AttentionSpec(
+            n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
+            head_dim=self.head_dim, rope_theta=self.rope_theta,
+            qk_norm=self.qk_norm, causal=True,
+            use_rope=(self.family != "encdec"), bias=self.attn_bias,
+            attn_chunk=self.attn_chunk, attn_unroll=self.attn_unroll)
+
+    def layer_plan(self):
+        """Returns (n_groups, per-group sub-layer plan).
+
+        Each sub-layer is (mixer, ffn).  The dense family repeats one
+        (attn, dense) sub-layer n_layers times; the reference's other plans
+        arrive with their families (ROADMAP A9-A11).
+        """
+        require_dense(self)
+        return self.n_layers, [("attn", "dense")]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str               # train | prefill | decode
+
+
+# ---------------------------------------------------------------------------
+# Param table
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    init: str = "normal"            # normal | zeros | ones
+
+
+def _attn_table(cfg: ModelConfig) -> dict:
+    hq = cfg.n_heads * cfg.head_dim
+    hkv = cfg.n_kv_heads * cfg.head_dim
+    d = cfg.d_model
+    t = {
+        "wq": ParamSpec((d, hq)),
+        "wk": ParamSpec((d, hkv)),
+        "wv": ParamSpec((d, hkv)),
+        "wo": ParamSpec((hq, d)),
+    }
+    if cfg.attn_bias:
+        t["bq"] = ParamSpec((hq,), "zeros")
+        t["bv"] = ParamSpec((hkv,), "zeros")
+        t["bo"] = ParamSpec((d,), "zeros")
+    if cfg.qk_norm:
+        t["q_norm"] = ParamSpec((cfg.head_dim,), "ones")
+        t["k_norm"] = ParamSpec((cfg.head_dim,), "ones")
+    return t
+
+
+def _mlp_table(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind == "swiglu":
+        return {
+            "w_gate": ParamSpec((d, f)),
+            "w_up": ParamSpec((d, f)),
+            "w_down": ParamSpec((f, d)),
+        }
+    t = {"w_up": ParamSpec((d, f)), "w_down": ParamSpec((f, d))}
+    if cfg.attn_bias:   # whisper-style biases everywhere
+        t["b_up"] = ParamSpec((f,), "zeros")
+        t["b_down"] = ParamSpec((d,), "zeros")
+    return t
+
+
+def _norm_table(cfg: ModelConfig, name: str) -> dict:
+    t = {f"{name}_w": ParamSpec((cfg.d_model,), "ones")}
+    if cfg.norm_kind == "layer":
+        t[f"{name}_b"] = ParamSpec((cfg.d_model,), "zeros")
+    return t
+
+
+def _stack_specs(tree: dict, n: int) -> dict:
+    """Prepend a `groups` axis of size n to every spec in tree."""
+    return {k: (_stack_specs(v, n) if isinstance(v, dict)
+                else ParamSpec((n,) + v.shape, v.init))
+            for k, v in tree.items()}
+
+
+def param_table(cfg: ModelConfig) -> dict:
+    n_groups, plan = cfg.layer_plan()
+    group = {}
+    for i in range(len(plan)):
+        sub = dict(_norm_table(cfg, "ln1"))
+        sub["attn"] = _attn_table(cfg)
+        sub.update(_norm_table(cfg, "ln2"))
+        sub["mlp"] = _mlp_table(cfg)
+        group[f"sub{i}"] = sub
+    table = {
+        "embed": {"tok": ParamSpec((cfg.padded_vocab, cfg.d_model))},
+        "blocks": _stack_specs(group, n_groups),
+        "final": _norm_table(cfg, "lnf"),
+    }
+    if not cfg.tie_embeddings:
+        table["lm_head"] = ParamSpec((cfg.d_model, cfg.padded_vocab))
+    return table
+
+
+def flatten(tree: dict, prefix: str = "") -> list[tuple[str, Any]]:
+    """[(path, leaf)] in insertion order, paths joined with '/'."""
+    out = []
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.extend(flatten(v, path) if isinstance(v, dict) else [(path, v)])
+    return out
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return sum(int(torch.Size(s.shape).numel())
+               for _, s in flatten(param_table(cfg)))
+
+
+def _init_leaf(spec: ParamSpec, cfg: ModelConfig,
+               gen: torch.Generator) -> torch.Tensor:
+    dtype = cfg.param_dtype
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=gen.device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=gen.device)
+    # truncated-normal fan-in init, as the reference
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    scale = min(0.02, (1.0 / max(fan_in, 1)) ** 0.5)
+    x = torch.empty(spec.shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x * scale).to(dtype)
+
+
+def unflatten(items) -> dict:
+    tree: dict = {}
+    for path, leaf in items:
+        *head, last = path.split("/")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """Params on `generator.device`, drawn in param-table order.
+
+    The reference folds a hash of each path into its key, and Python salts
+    string hashes per process, so its init is not reproducible across
+    processes.  Here one generator walks the table in order: the same seed
+    on the same device gives the same params in every process.  Parity
+    tests load the reference's params through `convert` instead.
+    """
+    return unflatten((path, _init_leaf(spec, cfg, generator))
+                      for path, spec in flatten(param_table(cfg)))
