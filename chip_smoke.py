@@ -8,21 +8,35 @@ the final `{"ok": true, ...}` line from printing:
   1. report the card (nvidia-smi name and power limit), turn TF32 off for
      matmuls and cuDNN, build the CUDA kernels from the sources (timed);
   2. hold each kernel against its plain PyTorch version on the card: the
-     reference test cases plus the full-width llama3.2-3b shapes, each in
-     fp32 (tolerance 2e-5) and bf16 (2e-2);
+     reference test cases plus the full-width llama3.2-3b and mamba2-780m
+     shapes, each in fp32 (tolerance 2e-5; SSD state 1e-4) and bf16 (2e-2;
+     SSD state 5e-2), the full-width SSD shape also at the decay and
+     step ranges of the model's init, and an SSD scan continued from a
+     carried state;
   3. serve llama3.2-3b at full width (B=4, 1024-token prompt, 32 new
      tokens, attn_impl="pallas"): the decode kernel must launch exactly
-     28 layers x 31 steps = 868 times; a plain ("xla") rerun with the same
-     weights, teacher-forced on the served tokens, must match every step's
-     logits at atol = rtol = 1e-3 (fp32 over 28 layers, sums in another
-     order);
-  4. the cache-free forward at full width (B=4, S=1024): exactly 28 flash
-     kernel launches, final hidden state within 1e-3 of the plain forward;
-  5. times with CUDA events (median of >= 20, after warm-up, L2 flushed
+     28 layers x 31 steps = 868 times and no other kernel; a plain ("xla")
+     rerun with the same weights, teacher-forced on the served tokens, must
+     match every step's logits at atol = rtol = 1e-3 (fp32 over 28 layers,
+     sums in another order);
+  4. the llama3.2-3b cache-free forward at full width (B=4, S=1024):
+     exactly 28 flash kernel launches, final hidden state within 1e-3 of
+     the plain forward;
+  5. serve mamba2-780m at full width (the same B, prompt and new tokens;
+     serving runs the SSD kernel on the card): exactly 48 SSD-scan
+     launches, all in prefill (the decode step is plain torch, as in the
+     reference), no attention kernel, and every step's logits within 1e-3
+     of the plain rerun;
+  6. the mamba2-780m forward at full width: 48 SSD-scan launches, hidden
+     state within 1e-3 of the plain forward;
+  7. times with CUDA events (median of >= 20, after warm-up, L2 flushed
      before each run): each kernel, its plain version and one PyTorch call
-     computing the same function (the `library_ms` yardstick, used nowhere
-     in the port), their lower bounds on the card, prefill and decode.
-Then the `kernels` JSON line, the card line and the final line.
+     computing the same function where there is one (the `library_ms`
+     yardstick, used nowhere in the port), their lower bounds on the card,
+     prefill and decode of both models, and a torch.profiler breakdown.
+Each of phases 3-6 sets every launch count to 0 just before it drives the
+path and reads the counts just after.  Then the `kernels` JSON line, the
+card line and the final line.
 
 It imports nothing of jax or of the reference package `repro`.
 """
@@ -48,7 +62,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 DEVICE = "cuda"
-ARCH, LAYERS = "llama3.2-3b", 28
+LLAMA, MAMBA = "llama3.2-3b", "mamba2-780m"
+LAYERS = {LLAMA: 28, MAMBA: 48}
 BATCH, PROMPT, NEW = 4, 1024, 32
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -67,6 +82,16 @@ FLASH_CASES = [
     (1, 200, 200, 4, 2, 64), (2, 128, 128, 4, 4, 128), (1, 512, 512, 2, 2, 16),
     (4, 1024, 1024, 24, 8, 128),
 ]
+# (b, L, h, p, g, n, chunk): the reference's SSD_CASES, the reduced
+# mamba2-780m shape, then the full-width prefill shape and a ragged L=1000
+SSD_CASES = [
+    (1, 256, 2, 64, 1, 64, 64), (2, 128, 4, 32, 2, 16, 32),
+    (1, 512, 2, 64, 1, 128, 128), (1, 128, 2, 64, 1, 16, 64),
+    (2, 20, 8, 16, 1, 16, 16),
+    (4, 1024, 48, 64, 1, 128, 128), (4, 1000, 48, 64, 1, 128, 128),
+]
+# y and final state, as the reference's test_ssd_kernel_matches_ref
+SSD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}
 
 
 def card_line() -> str:
@@ -140,9 +165,43 @@ def _randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
 
+def _ssd_inputs(gen, b, l, h, p, g, n, dtype):
+    """x, dt, a, B, C by the reference test's recipe: dt = softplus(z - 1),
+    a = -exp(0.3 z)."""
+    x = _randn(gen, (b, l, h, p), dtype)
+    dt = torch.nn.functional.softplus(_randn(gen, (b, l, h), torch.float32)
+                                      - 1.0)
+    a = -torch.exp(_randn(gen, (h,), torch.float32) * 0.3)
+    return (x, dt, a, _randn(gen, (b, l, g, n), dtype),
+            _randn(gen, (b, l, g, n), dtype))
+
+
+def _ssd_model_inputs(gen, b, l, h, p, g, n, dtype):
+    """x, dt, a, B, C over the ranges of the model's own init (api.py:
+    `a_log`, `dt_bias`): a from -1 to -16 and dt from 1e-3 to 1e-1 over the
+    heads, so the slowest heads carry their state across whole chunks."""
+    x = _randn(gen, (b, l, h, p), dtype)
+    dt_bias = torch.log(torch.expm1(torch.logspace(-3, -1, h, device=DEVICE)))
+    dt = torch.nn.functional.softplus(
+        0.1 * _randn(gen, (b, l, h), torch.float32) + dt_bias)
+    a = -torch.linspace(1.0, 16.0, h, device=DEVICE)
+    return (x, dt, a, _randn(gen, (b, l, g, n), dtype),
+            _randn(gen, (b, l, g, n), dtype))
+
+
+def _check_ssd(smoke, name, got, want, dtype):
+    (y, s), (y_want, s_want) = got, want
+    tol_y, tol_s = SSD_TOL[dtype]
+    err_y, ok_y = err_within(y, y_want, tol_y)
+    err_s, ok_s = err_within(s, s_want, tol_s)
+    smoke.check(name, ok_y and ok_s,
+                f"max_abs_err y={err_y:.3g} state={err_s:.3g}")
+
+
 def phase_kernels(smoke: Smoke) -> None:
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     for b, s, hq, hkv, hd, length in DECODE_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -169,15 +228,76 @@ def phase_kernels(smoke: Smoke) -> None:
             smoke.check(f"flash_attention b={b} sq={sq} sk={sk} hq={hq} "
                         f"hkv={hkv} hd={hd} {dtype}", ok,
                         f"max_abs_err={err:.3g}")
+    for b, l, h, p, g, n, chunk in SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _ssd_inputs(gen, b, l, h, p, g, n, dtype)
+            got = ssd.ssd(*args, chunk=chunk, impl="pallas")
+            want = ssd.ssd(*args, chunk=chunk, impl="xla")
+            torch.cuda.synchronize()
+            _check_ssd(smoke, f"ssd_scan b={b} L={l} h={h} p={p} g={g} n={n} "
+                       f"chunk={chunk} {dtype}", got, want, dtype)
+    # the full-width shape at the model's decay and step ranges, where the
+    # state is carried across whole chunks
+    b, l, h, p, g, n, chunk = SSD_CASES[-2]
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _ssd_model_inputs(gen, b, l, h, p, g, n, dtype)
+        got = ssd.ssd(*args, chunk=chunk, impl="pallas")
+        want = ssd.ssd(*args, chunk=chunk, impl="xla")
+        torch.cuda.synchronize()
+        _check_ssd(smoke, f"ssd_scan b={b} L={l} h={h} p={p} g={g} n={n} "
+                   f"chunk={chunk} model ranges {dtype}", got, want, dtype)
+    # full-width continuation: 512 steps, then 512 more from the carried
+    # state, against one 1024-step scan (tolerance as the reference's)
+    b, l, h, p, g, n, chunk = 4, 1024, 48, 64, 1, 128, 128
+    x, dt, a, bb, cc = _ssd_inputs(gen, b, l, h, p, g, n, torch.float32)
+    y_full, s_full = ssd.ssd(x, dt, a, bb, cc, chunk=chunk, impl="xla")
+    half = l // 2
+    _, s1 = ssd.ssd(x[:, :half], dt[:, :half], a, bb[:, :half],
+                    cc[:, :half], chunk=chunk, impl="pallas")
+    y2, s2 = ssd.ssd(x[:, half:], dt[:, half:], a, bb[:, half:],
+                     cc[:, half:], chunk=chunk, impl="pallas",
+                     initial_state=s1)
+    torch.cuda.synchronize()
+    err_y, ok_y = err_within(y2, y_full[:, half:], 1e-4)
+    err_s, ok_s = err_within(s2, s_full, 1e-4)
+    smoke.check("ssd_scan continuation 512+512 vs 1024 (1e-4)", ok_y and ok_s,
+                f"max_abs_err y={err_y:.3g} state={err_s:.3g}")
 
 
-def _full_cfg(attn_impl):
+def _counters() -> dict:
+    """The kernel wrappers, by kernel name; each counts its launches."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    return {"decode_attention": da.decode_attention,
+            "flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd}
+
+
+def _reset_launches() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_launches() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _check_launches(smoke, what, got, want) -> None:
+    for name in sorted(want):
+        smoke.check(f"{what}: {name} launches", got[name] == want[name],
+                    f"{got[name]} (want {want[name]})")
+
+
+def _full_cfg(arch, impl):
+    """Full-width config in fp32 (weights, activations, cache), as the
+    serving path (`launch/serve.py`) runs it, with both kernel knobs set
+    to `impl`."""
     import dataclasses
     from repro_torch import configs
-    cfg = configs.get(ARCH)
-    return dataclasses.replace(cfg, param_dtype=torch.float32,
+    return dataclasses.replace(configs.get(arch), param_dtype=torch.float32,
                                compute_dtype=torch.float32,
-                               kv_dtype=torch.float32, attn_impl=attn_impl)
+                               kv_dtype=torch.float32, attn_impl=impl,
+                               ssd_impl=impl)
 
 
 def _params(cfg, seed=0):
@@ -186,27 +306,30 @@ def _params(cfg, seed=0):
                            .manual_seed(seed))
 
 
-def phase_serve(smoke: Smoke) -> None:
-    from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.kernels.flash_attention import ops as fa
+def phase_serve(smoke: Smoke, arch: str) -> None:
     from repro_torch.launch.serve import ServeRun, serve
     from repro_torch.models import stack
-    run = ServeRun(arch=ARCH, reduced=False, batch=BATCH, prompt_len=PROMPT,
+    layers = LAYERS[arch]
+    run = ServeRun(arch=arch, reduced=False, batch=BATCH, prompt_len=PROMPT,
                    max_new_tokens=NEW, device=DEVICE, attn_impl="pallas")
-    da.decode_attention.launches = fa.flash_attention.launches = 0
+    _reset_launches()
     out = serve(run)
-    launches = da.decode_attention.launches
-    smoke.results["decode_launches"] = launches
-    smoke.check("serve: decode kernel launches", launches == LAYERS * (NEW - 1),
-                f"{launches} (want {LAYERS * (NEW - 1)})")
-    smoke.check("serve: no flash launches in prefill/decode",
-                fa.flash_attention.launches == 0)
+    launches = _read_launches()
+    # llama: the decode kernel at every layer of every decode step (prefill
+    # attends through plain _sdpa, as the reference); mamba: the SSD scan at
+    # every layer of the prefill (its decode step is plain torch)
+    want = ({"decode_attention": layers * (NEW - 1), "flash_attention": 0,
+             "ssd_scan": 0} if arch == LLAMA else
+            {"decode_attention": 0, "flash_attention": 0, "ssd_scan": layers})
+    smoke.results.setdefault("launches", {})[f"serve {arch}"] = launches
+    _check_launches(smoke, f"serve {arch}", launches, want)
     tokens, logits = torch.from_numpy(out["tokens"]), out["logits"]
-    cfg = _full_cfg("xla")
-    smoke.check("serve: tokens shape and range",
+    cfg = _full_cfg(arch, "xla")
+    smoke.check(f"serve {arch}: tokens shape and range",
                 tuple(tokens.shape) == (BATCH, NEW)
                 and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()))
-    smoke.check("serve: logits finite", bool(torch.isfinite(logits).all()))
+    smoke.check(f"serve {arch}: logits finite",
+                bool(torch.isfinite(logits).all()))
 
     # the plain path, same weights and prompt, fed the served tokens
     params = _params(cfg, run.seed)
@@ -223,36 +346,39 @@ def phase_serve(smoke: Smoke) -> None:
     plain = torch.stack(plain_logits, dim=1)
     err = float((logits - plain).abs().max())
     ok = bool(torch.allclose(logits, plain, atol=1e-3, rtol=1e-3))
-    smoke.results["serve"] = {
-        "arch": ARCH, "batch": BATCH, "prompt_len": PROMPT, "new_tokens": NEW,
+    smoke.results.setdefault("serve", {})[arch] = {
+        "batch": BATCH, "prompt_len": PROMPT, "new_tokens": NEW,
         "prefill_s": out["prefill_s"],
         "decode_tok_per_s": out["decode_tok_per_s"],
-        "decode_launches": launches, "max_abs_logit_err_vs_plain": err}
-    smoke.check("serve: logits vs plain path (atol=rtol=1e-3)", ok,
+        "launches": launches, "max_abs_logit_err_vs_plain": err}
+    smoke.check(f"serve {arch}: logits vs plain path (atol=rtol=1e-3)", ok,
                 f"max_abs_err={err:.3g}")
 
 
-def phase_forward(smoke: Smoke) -> None:
-    from repro_torch.kernels.flash_attention import ops as fa
+def phase_forward(smoke: Smoke, arch: str) -> None:
     from repro_torch.models import stack
-    cfg_k, cfg_p = _full_cfg("pallas"), _full_cfg("xla")
+    layers = LAYERS[arch]
+    cfg_k, cfg_p = _full_cfg(arch, "pallas"), _full_cfg(arch, "xla")
     params = _params(cfg_p)
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     tokens = torch.randint(0, cfg_p.vocab, (BATCH, PROMPT), generator=gen,
                            device=DEVICE, dtype=torch.int32)
     with torch.inference_mode():
-        fa.flash_attention.launches = 0
+        _reset_launches()
         h, _ = stack.forward(params, cfg_k, {"tokens": tokens})
-        launches = fa.flash_attention.launches
+        launches = _read_launches()
         h_plain, _ = stack.forward(params, cfg_p, {"tokens": tokens})
-    smoke.results["flash_launches"] = launches
-    smoke.check("forward: flash kernel launches", launches == LAYERS,
-                f"{launches} (want {LAYERS})")
+    want = ({"decode_attention": 0, "flash_attention": layers,
+             "ssd_scan": 0} if arch == LLAMA else
+            {"decode_attention": 0, "flash_attention": 0, "ssd_scan": layers})
+    smoke.results.setdefault("launches", {})[f"forward {arch}"] = launches
+    _check_launches(smoke, f"forward {arch}", launches, want)
     err = float((h - h_plain).abs().max())
-    smoke.results["forward"] = {"batch": BATCH, "seq": PROMPT,
-                                "flash_launches": launches,
-                                "max_abs_hidden_err_vs_plain": err}
-    smoke.check("forward: hidden state vs plain path (atol=rtol=1e-3)",
+    smoke.results.setdefault("forward", {})[arch] = {
+        "batch": BATCH, "seq": PROMPT, "launches": launches,
+        "max_abs_hidden_err_vs_plain": err}
+    smoke.check(f"forward {arch}: hidden state vs plain path "
+                f"(atol=rtol=1e-3)",
                 bool(torch.isfinite(h).all())
                 and bool(torch.allclose(h, h_plain, atol=1e-3, rtol=1e-3)),
                 f"max_abs_err={err:.3g}")
@@ -276,15 +402,20 @@ def time_ms(fn, flush, reps=30, warmup=3) -> float:
     return statistics.median(times)
 
 
+def _launches(smoke, path, name):
+    """A kernel's launches in the main-path run that drives it."""
+    return smoke.results.get("launches", {}).get(path, {}).get(name)
+
+
 def phase_times(smoke: Smoke) -> None:
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.models import io, stack
+    from repro_torch.kernels.ssd_scan import ops as ssd
     flush = torch.empty(64 * 2 ** 20, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     f32 = torch.float32
-    cfg = _full_cfg("pallas")
+    cfg = _full_cfg(LLAMA, "pallas")
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale = hd ** -0.5
     kernels = []
@@ -304,7 +435,8 @@ def phase_times(smoke: Smoke) -> None:
             "decode_attention",
             "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/decode_attention.py:63",
-            smoke, smoke.results.get("decode_launches"), got, want,
+            smoke, _launches(smoke, f"serve {LLAMA}", "decode_attention"),
+            got, want,
             time_ms(lambda: da.decode_attention(q, k, v, length, scale=scale),
                     flush),
             time_ms(lambda: da.decode_attention_plain(q, k, v, length,
@@ -326,7 +458,8 @@ def phase_times(smoke: Smoke) -> None:
             "flash_attention",
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:79",
-            smoke, smoke.results.get("flash_launches"), got, want,
+            smoke, _launches(smoke, f"forward {LLAMA}", "flash_attention"),
+            got, want,
             time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
                                                scale=scale), flush),
             time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
@@ -338,15 +471,68 @@ def phase_times(smoke: Smoke) -> None:
             {"b": BATCH, "s": PROMPT, "hq": hq, "hkv": hkv, "hd": hd,
              "dtype": "float32"}))
         del q, k, v, kq, kk, kv, got, want
+        # ssd_scan: one layer of the full-width mamba2-780m prefill, seeded
+        # from the (zero) cache state as the serving path seeds it
+        ms = _full_cfg(MAMBA, "pallas").mamba_spec
+        h, p, g, n, chunk = (ms.n_heads, ms.headdim, ms.n_groups,
+                             ms.d_state, ms.chunk)
+        args = _ssd_inputs(gen, BATCH, PROMPT, h, p, g, n, f32)
+        init = torch.zeros((BATCH, h, p, n), device=DEVICE)
+        got = ssd.ssd(*args, chunk=chunk, impl="pallas", initial_state=init)
+        want = ssd.ssd(*args, chunk=chunk, impl="xla", initial_state=init)
+        err_s, ok_s = err_within(got[1], want[1], SSD_TOL[f32][1])
+        smoke.check("ssd_scan: timed inputs vs plain (state)", ok_s,
+                    f"max_abs_err={err_s:.3g}")
+        # x, dt, B, C and the initial state read once, y and the state
+        # written once
+        nbytes = 4 * (2 * BATCH * PROMPT * h * p + BATCH * PROMPT * h
+                      + 2 * BATCH * PROMPT * g * n + h + 2 * BATCH * h * p * n)
+        # per chunk: C.B^T over the causal triangle once per (batch,
+        # group), the score.x product over the triangle, C.S and the state
+        # update per (batch, head)
+        tri = chunk * (chunk + 1) // 2
+        n_chunks = -(-PROMPT // chunk)
+        flops = n_chunks * BATCH * (2 * n * tri * g
+                                    + h * (2 * p * tri + 4 * chunk * n * p))
+        kernels.append(_kernel_entry(
+            "ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+            "src/repro/kernels/ssd_scan/ssd_scan.py:69",
+            smoke, _launches(smoke, f"serve {MAMBA}", "ssd_scan"),
+            got[0], want[0],
+            time_ms(lambda: ssd.ssd(*args, chunk=chunk, impl="pallas",
+                                    initial_state=init), flush),
+            time_ms(lambda: ssd.ssd(*args, chunk=chunk, impl="xla",
+                                    initial_state=init), flush, reps=20),
+            None, nbytes, flops,
+            {"b": BATCH, "L": PROMPT, "h": h, "p": p, "g": g, "n": n,
+             "chunk": chunk, "dtype": "float32"},
+            library_note="none: no single PyTorch call computes an SSD scan"))
+        del args, init, got, want
         smoke.results["kernels"] = kernels
+    for arch in (LLAMA, MAMBA):
+        _model_times(smoke, flush, arch)
 
-        # end to end: prefill and decode steps on the kernel path
+
+def _model_times(smoke, flush, arch) -> None:
+    """Prefill and decode-step times of one model on the kernel path at full
+    width, and where the time goes (torch.profiler over one prefill and over
+    three decode steps).  For mamba2-780m also the prefill with the plain
+    SSD scan, the kernel's end-to-end counterpart."""
+    import dataclasses
+    from repro_torch.models import io, stack
+    cfg = _full_cfg(arch, "pallas")
+    with torch.inference_mode():
         params = _params(cfg)
         batch = io.make_batch(cfg, io.smoke_cell("prefill", BATCH, PROMPT),
                               torch.Generator(device=DEVICE).manual_seed(1))
         prefill = stack.build_prefill_fn(cfg, PROMPT + NEW)
-        prefill_ms = time_ms(lambda: prefill(params, batch), flush, reps=20,
-                             warmup=2)
+        times = {"prefill_ms": time_ms(lambda: prefill(params, batch), flush,
+                                       reps=20, warmup=2)}
+        if arch == MAMBA:
+            plain = stack.build_prefill_fn(
+                dataclasses.replace(cfg, ssd_impl="xla"), PROMPT + NEW)
+            times["prefill_ms_plain_ssd"] = time_ms(
+                lambda: plain(params, batch), flush, reps=10, warmup=1)
         cache, logits = prefill(params, batch)
         tok = logits.argmax(-1)[:, None].to(torch.int32)
         decode = stack.build_decode_fn(cfg)
@@ -361,18 +547,17 @@ def phase_times(smoke: Smoke) -> None:
             steps.append(start.elapsed_time(end))
             tok = nxt[:, None]
         step_ms = statistics.median(steps[1:])
-        smoke.results["times"] = {
-            "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
-            "decode_tok_per_s": BATCH * 1e3 / step_ms,
-            "decode_steps_timed": len(steps) - 1}
+        times.update({"decode_step_ms": step_ms,
+                      "decode_tok_per_s": BATCH * 1e3 / step_ms,
+                      "decode_steps_timed": len(steps) - 1})
+        smoke.results.setdefault("times", {})[arch] = times
 
-        # where the time goes: one prefill, then three decode steps
         def three_steps():
             c, t = cache, tok
             for i in range(3):
                 c, n, _ = decode(params, c, t, PROMPT + NEW - 4 + i)
                 t = n[:, None]
-        smoke.results["profile"] = {
+        smoke.results.setdefault("profile", {})[arch] = {
             "prefill": _profile(lambda: prefill(params, batch)),
             "decode_3_steps": _profile(three_steps)}
 
@@ -404,7 +589,8 @@ def _profile(fn) -> dict:
 
 
 def _kernel_entry(name, source, replaces, smoke, launches, got, want, ms,
-                  plain_ms, library_ms, nbytes, flops, shape):
+                  plain_ms, library_ms, nbytes, flops, shape,
+                  library_note=None):
     """One entry of the `kernels` line; checks the timed inputs' output
     against the plain version at the fp32 tolerance."""
     err, ok = err_within(got, want, TOL[torch.float32])
@@ -416,8 +602,9 @@ def _kernel_entry(name, source, replaces, smoke, launches, got, want, ms,
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "shape": shape,
-            "bytes": nbytes, "flops": flops}
+            "library_ms": library_ms,
+            **({"library_note": library_note} if library_note else {}),
+            "shape": shape, "bytes": nbytes, "flops": flops}
 
 
 def main() -> int:
@@ -429,11 +616,17 @@ def main() -> int:
     t0 = time.perf_counter()
     smoke.phase("1 setup and build", lambda: phase_setup(smoke))
     smoke.phase("2 kernels vs plain", lambda: phase_kernels(smoke))
-    smoke.phase("3 serve at full width", lambda: phase_serve(smoke))
-    smoke.phase("4 forward at full width", lambda: phase_forward(smoke))
-    smoke.phase("5 times", lambda: phase_times(smoke))
+    smoke.phase(f"3 serve {LLAMA} at full width",
+                lambda: phase_serve(smoke, LLAMA))
+    smoke.phase(f"4 forward {LLAMA} at full width",
+                lambda: phase_forward(smoke, LLAMA))
+    smoke.phase(f"5 serve {MAMBA} at full width",
+                lambda: phase_serve(smoke, MAMBA))
+    smoke.phase(f"6 forward {MAMBA} at full width",
+                lambda: phase_forward(smoke, MAMBA))
+    smoke.phase("7 times", lambda: phase_times(smoke))
     r = smoke.results
-    for key in ("serve", "forward", "times", "profile"):
+    for key in ("launches", "serve", "forward", "times", "profile"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"total {time.perf_counter() - t0:.1f} s; "

@@ -1,4 +1,5 @@
-"""Architecture config registry (the dense family of the reference's ten).
+"""Architecture config registry (the dense and SSM families of the
+reference's ten).
 
 Usage:
     from repro_torch import configs
@@ -27,6 +28,7 @@ _MODULES = {
     "yi-9b": "yi_9b",
     "qwen3-14b": "qwen3_14b",
     "llama3.2-3b": "llama3_2_3b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 # arch id -> the ROADMAP item that ports its family
@@ -35,8 +37,7 @@ _NOT_PORTED = {
     "phi-3-vision-4.2b": "A11 (VLM)",
     "qwen3-moe-30b-a3b": "A10 (MoE)",
     "phi3.5-moe-42b-a6.6b": "A10 (MoE)",
-    "mamba2-780m": "A9 (SSM)",
-    "jamba-v0.1-52b": "A9/A10 (hybrid SSM + MoE)",
+    "jamba-v0.1-52b": "A10 (MoE, for the hybrid's MoE layers)",
 }
 
 

@@ -24,6 +24,7 @@ SOURCES = {
         _KERNELS / "decode_attention" / "csrc" / "decode_attention.cu",
     "flash_attention":
         _KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+    "ssd_scan": _KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",
 }
 INCLUDE = _KERNELS / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

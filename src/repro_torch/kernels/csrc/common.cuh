@@ -1,4 +1,4 @@
-// Helpers shared by the attention kernels: 16-byte vector loads of fp32 or
+// Helpers shared by the kernels: 16-byte vector loads of fp32 or
 // bf16 rows, converted to fp32 in registers, and typed scalar stores.
 #pragma once
 

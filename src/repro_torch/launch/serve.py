@@ -1,10 +1,11 @@
 """Serving driver: prefill + greedy batched decode on one device.
 
 Mirrors `repro/launch/serve.py::serve`.  The multi-tenant `--daemon` mode
-(the FOS runtime) is ROADMAP slice 2 (A6-A8) and is not part of this CLI.
+(the FOS runtime, ROADMAP A6-A8) is not part of this CLI yet.
 
     PYTHONPATH=src python -m repro_torch.launch.serve            # on cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
 """
 from __future__ import annotations
 
@@ -83,7 +84,7 @@ def serve(run: ServeRun, log=print) -> dict:
     cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
                               compute_dtype=torch.float32,
                               kv_dtype=torch.float32,
-                              attn_impl=run.attn_impl)
+                              attn_impl=run.attn_impl, ssd_impl="pallas")
     gen = torch.Generator(device=device)
     params = api.init_params(cfg, gen.manual_seed(run.seed))
 

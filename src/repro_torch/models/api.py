@@ -6,30 +6,31 @@ shapes and initializers (every param has `cfg.param_dtype`).  Block params carry
 axis (one entry per repeat of `layer_plan()`), as in the reference, so a
 converted reference param tree maps across leaf for leaf.
 
-This slice ports the dense family.  The other families raise
+The dense and SSM families are ported.  The other families raise
 NotImplementedError naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba as mamba_mod
 
+PORTED_FAMILIES = ("dense", "ssm")
 # family -> the ROADMAP item that ports it
 _FAMILY_ITEM = {
     "moe": "A10 (MoE)",
-    "ssm": "A9 (SSM)",
-    "hybrid": "A9/A10 (hybrid SSM + MoE)",
+    "hybrid": "A10 (MoE, for the hybrid's MoE layers)",
     "encdec": "A11 (encoder-decoder)",
     "vlm": "A11 (VLM)",
 }
 
 
-def require_dense(cfg) -> None:
-    if cfg.family != "dense":
+def require_ported(cfg) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet: ROADMAP "
             f"{_FAMILY_ITEM.get(cfg.family, cfg.family)}")
@@ -103,7 +104,7 @@ class ModelConfig:
     compute_dtype: Any = torch.bfloat16
     kv_dtype: Any = torch.bfloat16
     attn_impl: str = "xla"          # "xla": plain torch | "pallas": kernel
-    ssd_impl: str = "xla"
+    ssd_impl: str = "xla"           # the same, for the SSD scan
     remat: str = "none"             # none | full | dots
     loss_chunk: int = 0             # 0 = unchunked final projection
     max_pos: int = 8192             # learned-pos table size (encdec only)
@@ -120,8 +121,12 @@ class ModelConfig:
         return ((self.vocab + 255) // 256) * 256
 
     @property
-    def mamba_spec(self):
-        raise NotImplementedError("mamba_spec: ROADMAP A9 (SSM)")
+    def mamba_spec(self) -> mamba_mod.MambaSpec:
+        s = self.ssm or SSMConfig()
+        return mamba_mod.MambaSpec(
+            d_model=self.d_model, d_state=s.d_state, headdim=s.headdim,
+            expand=s.expand, n_groups=s.n_groups, conv_kernel=s.conv_kernel,
+            chunk=s.chunk, ssd_impl=self.ssd_impl)
 
     @property
     def attn_spec(self) -> layers.AttentionSpec:
@@ -136,10 +141,13 @@ class ModelConfig:
         """Returns (n_groups, per-group sub-layer plan).
 
         Each sub-layer is (mixer, ffn).  The dense family repeats one
-        (attn, dense) sub-layer n_layers times; the reference's other plans
-        arrive with their families (ROADMAP A9-A11).
+        (attn, dense) sub-layer n_layers times, the SSM family one
+        (mamba, none); the reference's other plans arrive with their
+        families (ROADMAP A10, A11).
         """
-        require_dense(self)
+        require_ported(self)
+        if self.family == "ssm":
+            return self.n_layers, [("mamba", "none")]
         return self.n_layers, [("attn", "dense")]
 
 
@@ -159,7 +167,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
-    init: str = "normal"            # normal | zeros | ones
+    init: str = "normal"            # normal | zeros | ones | a_log | dt_bias
 
 
 def _attn_table(cfg: ModelConfig) -> dict:
@@ -197,6 +205,26 @@ def _mlp_table(cfg: ModelConfig) -> dict:
     return t
 
 
+def _mamba_table(cfg: ModelConfig) -> dict:
+    s = cfg.mamba_spec
+    d = cfg.d_model
+    return {
+        "w_z": ParamSpec((d, s.d_inner)),
+        "w_x": ParamSpec((d, s.d_inner)),
+        "w_bc": ParamSpec((d, s.bc_dim)),
+        "w_dt": ParamSpec((d, s.n_heads)),
+        "dt_bias": ParamSpec((s.n_heads,), "dt_bias"),
+        "a_log": ParamSpec((s.n_heads,), "a_log"),
+        "d_skip": ParamSpec((s.n_heads,), "ones"),
+        "w_conv_x": ParamSpec((s.conv_kernel, s.d_inner)),
+        "b_conv_x": ParamSpec((s.d_inner,), "zeros"),
+        "w_conv_bc": ParamSpec((s.conv_kernel, s.bc_dim)),
+        "b_conv_bc": ParamSpec((s.bc_dim,), "zeros"),
+        "norm_w": ParamSpec((s.d_inner,), "ones"),
+        "w_out": ParamSpec((s.d_inner, d)),
+    }
+
+
 def _norm_table(cfg: ModelConfig, name: str) -> dict:
     t = {f"{name}_w": ParamSpec((cfg.d_model,), "ones")}
     if cfg.norm_kind == "layer":
@@ -211,15 +239,22 @@ def _stack_specs(tree: dict, n: int) -> dict:
             for k, v in tree.items()}
 
 
+def _sublayer_table(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
+    t = dict(_norm_table(cfg, "ln1"))
+    if mixer == "attn":
+        t["attn"] = _attn_table(cfg)
+    else:
+        t["mamba"] = _mamba_table(cfg)
+    if ffn != "none":
+        t.update(_norm_table(cfg, "ln2"))
+        t["mlp"] = _mlp_table(cfg)
+    return t
+
+
 def param_table(cfg: ModelConfig) -> dict:
     n_groups, plan = cfg.layer_plan()
-    group = {}
-    for i in range(len(plan)):
-        sub = dict(_norm_table(cfg, "ln1"))
-        sub["attn"] = _attn_table(cfg)
-        sub.update(_norm_table(cfg, "ln2"))
-        sub["mlp"] = _mlp_table(cfg)
-        group[f"sub{i}"] = sub
+    group = {f"sub{i}": _sublayer_table(cfg, mixer, ffn)
+             for i, (mixer, ffn) in enumerate(plan)}
     table = {
         "embed": {"tok": ParamSpec((cfg.padded_vocab, cfg.d_model))},
         "blocks": _stack_specs(group, n_groups),
@@ -251,6 +286,14 @@ def _init_leaf(spec: ParamSpec, cfg: ModelConfig,
         return torch.zeros(spec.shape, dtype=dtype, device=gen.device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=gen.device)
+    if spec.init == "a_log":        # decay rates a = -1 .. -16 over heads
+        v = torch.log(torch.linspace(1.0, 16.0, spec.shape[-1]))
+        return v.expand(spec.shape).to(gen.device, dtype)
+    if spec.init == "dt_bias":      # softplus(dt_bias) = 1e-3 .. 1e-1
+        dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1),
+                                      spec.shape[-1]))
+        return torch.log(torch.expm1(dt)).expand(spec.shape).to(gen.device,
+                                                               dtype)
     # truncated-normal fan-in init, as the reference
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     scale = min(0.02, (1.0 / max(fan_in, 1)) ** 0.5)

@@ -1,15 +1,16 @@
-"""Decoder stack, loss, prefill and decode steps (dense family).
+"""Decoder stack, loss, prefill and decode steps (dense and SSM families).
 
 Mirrors `repro/models/stack.py`.  Block params keep the reference's stacked
 layout (every leaf has a leading `groups` axis) and a plain Python loop
 walks the groups where the reference scans.  The decode cache keeps the
-reference's [G, B, S, Hkv, hd] layout and is written in place.
+reference's layouts ([G, B, S, Hkv, hd] K/V; [G, B, H, P, N] SSM state and
+[G, B, K-1, C] conv tails) and is written in place.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import api, layers
+from repro_torch.models import api, layers, mamba as mamba_mod
 from repro_torch.models.api import ModelConfig
 
 
@@ -25,15 +26,30 @@ def _index(tree, i: int):
             for k, v in tree.items()}
 
 
-def _sublayer(sub, cfg: ModelConfig, h, positions, *, cache=None,
-              cache_pos=None):
-    """One (attn, dense) sub-layer; returns (h, new_cache)."""
-    y, new_kv = layers.attention(
-        sub["attn"], _norm(sub, "ln1", h, cfg), cfg.attn_spec, positions,
-        attn_impl=cfg.attn_impl, kv_cache=cache, cache_pos=cache_pos)
+def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
+              cache=None, cache_pos=None):
+    """One (mixer, ffn) sub-layer; returns h.  `cache` (this sub-layer's
+    views into the stacked cache) is updated in place."""
+    mixer, ffn = plan_item
+    if mixer == "attn":
+        # attention writes the new K/V into the cache views itself
+        y, _ = layers.attention(
+            sub["attn"], _norm(sub, "ln1", h, cfg), cfg.attn_spec, positions,
+            attn_impl=cfg.attn_impl, kv_cache=cache, cache_pos=cache_pos)
+    else:
+        state = None if cache is None else (
+            cache["ssm"], cache["conv_x"], cache["conv_bc"])
+        y, new_state = mamba_mod.mamba_block(
+            sub["mamba"], _norm(sub, "ln1", h, cfg), cfg.mamba_spec,
+            state=state)
+        if cache is not None:
+            for view, new in zip(state, new_state):
+                view.copy_(new)
     h = h + y
-    h = h + layers.mlp(sub["mlp"], _norm(sub, "ln2", h, cfg), cfg.mlp_kind)
-    return h, new_kv
+    if ffn == "dense":
+        h = h + layers.mlp(sub["mlp"], _norm(sub, "ln2", h, cfg),
+                           cfg.mlp_kind)
+    return h
 
 
 def run_stack(blocks, cfg: ModelConfig, h, positions, *, cache=None,
@@ -49,10 +65,10 @@ def run_stack(blocks, cfg: ModelConfig, h, positions, *, cache=None,
     for g in range(n_groups):
         group = _index(blocks, g)
         cache_g = None if cache is None else _index(cache, g)
-        for i in range(len(plan)):
+        for i, item in enumerate(plan):
             sub_cache = None if cache_g is None else cache_g[f"sub{i}"]
-            h, _ = _sublayer(group[f"sub{i}"], cfg, h, positions,
-                             cache=sub_cache, cache_pos=cache_pos)
+            h = _sublayer(group[f"sub{i}"], cfg, item, h, positions,
+                          cache=sub_cache, cache_pos=cache_pos)
     return h, cache
 
 
@@ -88,7 +104,7 @@ def unembed(params, cfg: ModelConfig, h):
 
 def forward(params, cfg: ModelConfig, batch):
     """Teacher-forcing forward. batch: {"tokens": [B, S]}.
-    Returns (h_final, aux); aux is 0 for the dense family."""
+    Returns (h_final, aux); aux is 0 for the dense and SSM families."""
     tokens = batch["tokens"]
     h = embed_tokens(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -135,10 +151,22 @@ def build_loss_fn(cfg: ModelConfig):
 
 def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     n_groups, plan = cfg.layer_plan()
-    kv_shape = (n_groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {f"sub{i}": {"k": (kv_shape, cfg.kv_dtype),
-                        "v": (kv_shape, cfg.kv_dtype)}
-            for i, _ in enumerate(plan)}
+    group = {}
+    for i, (mixer, _) in enumerate(plan):
+        if mixer == "attn":
+            kv_shape = (n_groups, batch, max_len, cfg.n_kv_heads,
+                        cfg.head_dim)
+            group[f"sub{i}"] = {"k": (kv_shape, cfg.kv_dtype),
+                                "v": (kv_shape, cfg.kv_dtype)}
+        else:
+            ms = cfg.mamba_spec
+            k1 = ms.conv_kernel - 1
+            group[f"sub{i}"] = {
+                "ssm": ((n_groups, batch, ms.n_heads, ms.headdim,
+                         ms.d_state), torch.float32),
+                "conv_x": ((n_groups, batch, k1, ms.d_inner), cfg.kv_dtype),
+                "conv_bc": ((n_groups, batch, k1, ms.bc_dim), cfg.kv_dtype)}
+    return group
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):

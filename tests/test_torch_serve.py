@@ -156,12 +156,14 @@ def test_serve_on_cpu_returns_tokens(impl):
 
 
 def test_unported_families_raise():
-    for arch in ("mamba2-780m", "qwen3-moe-30b-a3b", "whisper-large-v3"):
+    for arch in ("jamba-v0.1-52b", "qwen3-moe-30b-a3b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             configs.get(arch)
     cfg = dataclasses.replace(configs.get("llama3.2-3b", reduced=True),
                               family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         api.param_table(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        _ = cfg.mamba_spec
+    cfg = dataclasses.replace(configs.get("mamba2-780m", reduced=True),
+                              family="hybrid")
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        cfg.layer_plan()
