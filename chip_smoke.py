@@ -10,9 +10,11 @@ the final `{"ok": true, ...}` line from printing:
   2. hold each kernel against its plain PyTorch version on the card: the
      reference test cases plus the full-width llama3.2-3b and mamba2-780m
      shapes, each in fp32 (tolerance 2e-5; SSD state 1e-4) and bf16 (2e-2;
-     SSD state 5e-2), the full-width SSD shape also at the decay and
-     step ranges of the model's init, and an SSD scan continued from a
-     carried state;
+     SSD state 5e-2); decode lengths whose split-KV shares run empty or
+     ragged (1, 7, 9, 131, 1033 rows, the full cache, B=1); the full-width
+     SSD shape also at the decay and step ranges of the model's init, at
+     L=4096 (32 chunks of state passing), and continued from a carried
+     state;
   3. serve llama3.2-3b at full width (B=4, 1024-token prompt, 32 new
      tokens, attn_impl="pallas"): the decode kernel must launch exactly
      28 layers x 31 steps = 868 times and no other kernel; a plain ("xla")
@@ -33,7 +35,10 @@ the final `{"ok": true, ...}` line from printing:
      before each run): each kernel, its plain version and one PyTorch call
      computing the same function where there is one (the `library_ms`
      yardstick, used nowhere in the port), their lower bounds on the card,
-     prefill and decode of both models, and a torch.profiler breakdown.
+     each kernel's device-only time (torch.profiler: its kernels' self
+     device time over the calls, and how many device kernels one call
+     enqueues), prefill and decode of both models, and a torch.profiler
+     breakdown.
 Each of phases 3-6 sets every launch count to 0 just before it drives the
 path and reads the counts just after.  Then the `kernels` JSON line, the
 card line and the final line.
@@ -68,12 +73,18 @@ BATCH, PROMPT, NEW = 4, 1024, 32
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 # (b, s_cache, hq, hkv, hd, length): the reference's DECODE_CASES
-# (tests/test_kernels.py), then the llama3.2-3b serving shapes
+# (tests/test_kernels.py), then the llama3.2-3b serving shapes, where 8 CTAs
+# split each (batch, kv head): lengths 1, 7 and 9 leave splits empty, 131
+# and 1033 make the last share ragged, 1056 fills the cache; B=1 has 8
+# clusters only
 DECODE_CASES = [
     (1, 512, 4, 4, 64, 512), (2, 1024, 8, 2, 64, 700),
     (1, 2048, 4, 1, 128, 1), (2, 512, 4, 2, 64, 512), (1, 640, 4, 4, 32, 300),
-    (4, 1056, 24, 8, 128, 1), (4, 1056, 24, 8, 128, 1025),
-    (4, 1056, 24, 8, 128, 1056),
+    (4, 1056, 24, 8, 128, 1), (4, 1056, 24, 8, 128, 7),
+    (4, 1056, 24, 8, 128, 9), (4, 1056, 24, 8, 128, 131),
+    (4, 1056, 24, 8, 128, 1025), (4, 1056, 24, 8, 128, 1033),
+    (4, 1056, 24, 8, 128, 1056), (1, 1056, 24, 8, 128, 5),
+    (1, 1056, 24, 8, 128, 1040),
 ]
 # (b, sq, sk, hq, hkv, hd): the reference's FLASH_CASES, then the
 # llama3.2-3b forward shape
@@ -82,14 +93,23 @@ FLASH_CASES = [
     (1, 200, 200, 4, 2, 64), (2, 128, 128, 4, 4, 128), (1, 512, 512, 2, 2, 16),
     (4, 1024, 1024, 24, 8, 128),
 ]
-# (b, L, h, p, g, n, chunk): the reference's SSD_CASES, the reduced
-# mamba2-780m shape, then the full-width prefill shape and a ragged L=1000
+# (b, L, h, p, g, n, chunk): the full-width mamba2-780m prefill shape
+SSD_FULL = (4, 1024, 48, 64, 1, 128, 128)
+# the reference's SSD_CASES, the reduced mamba2-780m shape, then the
+# full-width prefill shape, a ragged L=1000 and L=4096 (32 chunks)
 SSD_CASES = [
     (1, 256, 2, 64, 1, 64, 64), (2, 128, 4, 32, 2, 16, 32),
     (1, 512, 2, 64, 1, 128, 128), (1, 128, 2, 64, 1, 16, 64),
     (2, 20, 8, 16, 1, 16, 16),
-    (4, 1024, 48, 64, 1, 128, 128), (4, 1000, 48, 64, 1, 128, 128),
+    SSD_FULL, (4, 1000, 48, 64, 1, 128, 128), (4, 4096, 48, 64, 1, 128, 128),
 ]
+# the kernel instantiations the fp32 main paths run, as ptxas names them
+# (mangled): decode at hd=128, g<=4; SSD at P=64, N=128 (its C.B^T kernel
+# at N=128); flash at hd=128
+MAIN_PATH_INSTANCES = (
+    "decode_kernelIfLi128ELi4E", "ssd_chunk_state_kernelIfLi64ELi128E",
+    "ssd_chunk_scan_kernelIfLi64ELi128E", "ssd_cb_kernelIfLi128E",
+    "ssd_state_pass_kernel", "flash_kernelIfLi128E")
 # y and final state, as the reference's test_ssd_kernel_matches_ref
 SSD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}
 
@@ -151,14 +171,41 @@ def phase_setup(smoke: Smoke) -> None:
     libs = _build.build()
     smoke.results["build_s"] = time.perf_counter() - t0
     print(f"built {sorted(libs)} in {smoke.results['build_s']:.1f} s")
+    main_path = []
     for name, lib in libs.items():
         log = lib.with_suffix(".log").read_text() \
             if lib.with_suffix(".log").exists() else ""
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
-        print(f"ptxas {name}: {len(regs)} kernels, registers "
+        kernels = _ptxas_kernels(log)
+        regs = [k["registers"] for k in kernels]
+        print(f"ptxas {name}: {len(kernels)} kernels, registers "
               f"{min(regs, default=0)}..{max(regs, default=0)}, "
-              f"spill stores {max(spills, default=0)} bytes")
+              f"spill stores {max((k['spill'] for k in kernels), default=0)}"
+              f" bytes")
+        for k in kernels:
+            if k["spill"]:
+                print(f"   spills {k['spill']} bytes: {k['name']}")
+            if any(m in k["name"] for m in MAIN_PATH_INSTANCES):
+                main_path.append(k)
+                print(f"   main path: {k['registers']} registers, "
+                      f"{k['spill']} bytes spilled: {k['name']}")
+    smoke.results["ptxas_main_path"] = main_path
+    smoke.check("ptxas: main-path instantiations do not spill",
+                bool(main_path) and not any(k["spill"] for k in main_path),
+                f"{len(main_path)} kernels")
+
+
+def _ptxas_kernels(log: str) -> list[dict]:
+    """Each entry function of a `-Xptxas -v` log, with its registers and
+    spill stores."""
+    kernels = []
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            kernels.append({"name": m.group(1), "registers": 0, "spill": 0})
+        elif kernels and (m := re.search(r"(\d+) bytes spill stores", line)):
+            kernels[-1]["spill"] = int(m.group(1))
+        elif kernels and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[-1]["registers"] = int(m.group(1))
+    return kernels
 
 
 def _randn(gen, shape, dtype):
@@ -238,7 +285,7 @@ def phase_kernels(smoke: Smoke) -> None:
                        f"chunk={chunk} {dtype}", got, want, dtype)
     # the full-width shape at the model's decay and step ranges, where the
     # state is carried across whole chunks
-    b, l, h, p, g, n, chunk = SSD_CASES[-2]
+    b, l, h, p, g, n, chunk = SSD_FULL
     for dtype in (torch.float32, torch.bfloat16):
         args = _ssd_model_inputs(gen, b, l, h, p, g, n, dtype)
         got = ssd.ssd(*args, chunk=chunk, impl="pallas")
@@ -248,7 +295,7 @@ def phase_kernels(smoke: Smoke) -> None:
                    f"chunk={chunk} model ranges {dtype}", got, want, dtype)
     # full-width continuation: 512 steps, then 512 more from the carried
     # state, against one 1024-step scan (tolerance as the reference's)
-    b, l, h, p, g, n, chunk = 4, 1024, 48, 64, 1, 128, 128
+    b, l, h, p, g, n, chunk = SSD_FULL
     x, dt, a, bb, cc = _ssd_inputs(gen, b, l, h, p, g, n, torch.float32)
     y_full, s_full = ssd.ssd(x, dt, a, bb, cc, chunk=chunk, impl="xla")
     half = l // 2
@@ -402,6 +449,41 @@ def time_ms(fn, flush, reps=30, warmup=3) -> float:
     return statistics.median(times)
 
 
+def device_time(fn, flush, kernel_name, calls=20, clean_l2=False) -> tuple:
+    """Device-only time of one call of fn(): the self device time that
+    torch.profiler gives the kernels whose name holds `kernel_name`, summed
+    over `calls` calls (the L2 cache flushed before each) and divided by
+    them, so the wrapper's host work is left out; and how many such device
+    kernels one call enqueued, and the time of each of them by name.  The
+    flush is time_ms's 256 MB write, which
+    leaves the L2 full of dirty lines whose write-back the next kernel
+    pays; with `clean_l2` it is a 256 MB read instead, which leaves clean
+    lines, as the weight reads before attention in a decode step do."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            if clean_l2:
+                flush.sum()
+            else:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and kernel_name in e.key and e.self_device_time_total]
+    if not events:
+        return "not measured", "not measured", {}
+    by_kernel = {}
+    for e in events:  # demangled name up to its argument list
+        name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key)
+        by_kernel[name] = by_kernel.get(name, 0.0) + \
+            e.self_device_time_total / 1e3 / calls
+    return (sum(e.self_device_time_total for e in events) / 1e3 / calls,
+            sum(e.count for e in events) / calls, by_kernel)
+
+
 def _launches(smoke, path, name):
     """A kernel's launches in the main-path run that drives it."""
     return smoke.results.get("launches", {}).get(path, {}).get(name)
@@ -443,6 +525,10 @@ def phase_times(smoke: Smoke) -> None:
                                                       scale=scale), flush),
             time_ms(lambda: F.scaled_dot_product_attention(
                 kq, kk, kv, scale=scale, enable_gqa=True), flush),
+            [device_time(lambda: da.decode_attention(q, k, v, length,
+                                                     scale=scale),
+                         flush, "decode_kernel", clean_l2=clean)
+             for clean in (False, True)],
             nbytes, flops,
             {"b": BATCH, "hq": hq, "hkv": hkv, "hd": hd, "s_cache": s_cache,
              "length": length, "dtype": "float32"}))
@@ -467,6 +553,10 @@ def phase_times(smoke: Smoke) -> None:
             time_ms(lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, scale=scale, enable_gqa=True), flush),
+            [device_time(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                    scale=scale),
+                         flush, "flash_kernel", clean_l2=clean)
+             for clean in (False, True)],
             nbytes, flops,
             {"b": BATCH, "s": PROMPT, "hq": hq, "hkv": hkv, "hd": hd,
              "dtype": "float32"}))
@@ -503,7 +593,14 @@ def phase_times(smoke: Smoke) -> None:
                                     initial_state=init), flush),
             time_ms(lambda: ssd.ssd(*args, chunk=chunk, impl="xla",
                                     initial_state=init), flush, reps=20),
-            None, nbytes, flops,
+            None,
+            # all four phases' kernels (ssd_cb, ssd_chunk_state,
+            # ssd_state_pass, ssd_chunk_scan)
+            [device_time(lambda: ssd.ssd(*args, chunk=chunk, impl="pallas",
+                                         initial_state=init),
+                         flush, "ssd_", clean_l2=clean)
+             for clean in (False, True)],
+            nbytes, flops,
             {"b": BATCH, "L": PROMPT, "h": h, "p": p, "g": g, "n": n,
              "chunk": chunk, "dtype": "float32"},
             library_note="none: no single PyTorch call computes an SSD scan"))
@@ -589,17 +686,22 @@ def _profile(fn) -> dict:
 
 
 def _kernel_entry(name, source, replaces, smoke, launches, got, want, ms,
-                  plain_ms, library_ms, nbytes, flops, shape,
+                  plain_ms, library_ms, device, nbytes, flops, shape,
                   library_note=None):
     """One entry of the `kernels` line; checks the timed inputs' output
-    against the plain version at the fp32 tolerance."""
+    against the plain version at the fp32 tolerance.  `device` holds
+    device_time()'s (ms, device kernels per call) after the write flush
+    and after the read flush."""
     err, ok = err_within(got, want, TOL[torch.float32])
     smoke.check(f"{name}: timed inputs vs plain", ok, f"max_abs_err={err:.3g}")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "kernel_ms": ms, "device_ms": device[0][0],
+            "device_ms_clean_l2": device[1][0],
+            "device_kernels_per_call": device[0][1],
+            "device_ms_by_kernel": device[0][2], "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,

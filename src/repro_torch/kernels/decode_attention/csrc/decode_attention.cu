@@ -9,32 +9,53 @@
 // What bounds it on the H100: device-memory bytes.  Every valid K and V row
 // is read once and serves only the g = Hq/Hkv query heads of its kv head, so
 // the kernel does about g FLOP per byte, far below the card's fp32 ridge of
-// ~20 FLOP/byte (67 TFLOP/s over 3.35 TB/s).  What the design does about it:
-//   - one CTA per (batch, kv head) holds all g query heads of that kv head,
-//     so each K/V row crosses the memory bus once, not g times;
+// ~20 FLOP/byte (67 TFLOP/s over 3.35 TB/s).  Reading at HBM rate needs
+// several MB of loads in flight across the card (Little's law: 3.35 TB/s
+// times ~1 us), and at decode B*Hkv is small (32 at the llama3.2-3b serving
+// shape, on 132 SMs).  What the design does about it:
+//   - the KV rows of one (batch, kv head) are split across the `splits` CTAs
+//     of one thread-block cluster (up to 8, the portable cluster size); the
+//     caller picks `splits` from B*Hkv and the SM count only, and each CTA
+//     computes its contiguous share of [0, length) itself, so the grid does
+//     not change with the position;
+//   - each CTA holds all g query heads of its kv head, so each K/V row
+//     crosses the memory bus once, not g times;
 //   - the cache is read in place, in the model's [B, S, Hkv, hd] layout,
-//     through strides: no transposed or padded copy of the cache, which would
-//     move the whole cache again at every layer of every token;
+//     through strides: no transposed or padded copy of the cache;
 //   - rows at or past `length` are never read;
 //   - each lane loads 16 bytes of a row, a warp covers 32*16 bytes of rows
-//     per step and keeps kUnroll steps in flight, and the running softmax
-//     (m, l, acc) stays in registers in fp32.
-// Known limit: only B*Hkv CTAs (32 at the llama3.2-3b serving shape, on 132
-// SMs).  Splitting the KV range across CTAs with a combine pass
-// (flash-decoding) is queued in ROADMAP B1.
+//     per step and keeps kUnroll steps in flight (256 CTAs keep ~4 MB of
+//     loads outstanding at fp32, hd = 128), and the running softmax (m, l,
+//     acc) stays in registers in fp32.  kUnroll = 2 keeps the fp32 hd = 128
+//     kernel at 80 registers, so three CTAs fit on an SM and a whole
+//     cluster of 8 always finds room; a deeper unroll or a register
+//     prefetch of the next step measured slower on the H100;
+//   - the splits are merged without another launch and without scratch in
+//     device memory: each CTA leaves its partial (m, l, acc) in its own
+//     shared memory, and after a cluster barrier every CTA of the cluster
+//     reads all partials through distributed shared memory, rescales them
+//     and writes its share of the output; a second barrier keeps the shared
+//     memory alive until every peer has read it.  A split with no rows keeps
+//     m = kNegBig and l = 0, and adds exp2(kNegBig - m) = 0.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
 using namespace repro;
+namespace cg = cooperative_groups;
 
 constexpr int kWarps = 8;
-constexpr int kUnroll = 4;
+constexpr int kUnroll = 2;
+constexpr int kMaxSplits = 8;  // the portable cluster size
 
 // T: q/cache/out type.  HD: head dim.  G: a bound on g (registers are sized
-// by G, the loops are guarded by the runtime g).
+// by G, the loops are guarded by the runtime g; up to G = 4 the launch bound
+// keeps at least two CTAs on an SM).  Grid (splits, Hkv, B); the `splits`
+// CTAs along x form one cluster.
 template <typename T, int HD, int G>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, G <= 4 ? 2 : 1)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out, int hkv, int g,
               int length, float scale, int k_sb, int k_ss, int k_sh,
@@ -46,12 +67,21 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int SLOTS = kWarps * RPW;  // rows per CTA step
   static_assert(HD % VEC == 0 && LPK <= 32, "unsupported head dim");
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int kvh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / LPK;          // which row of the warp step
   const int part = lane % LPK;         // which 16-byte slice of the row
   const int slot = warp * RPW + sub;
   const int hq = hkv * g;
+
+  // this CTA's rows [row0, row1): share = ceil(length / splits) each, the
+  // last shares shorter or empty (ops.py::split_rows computes the same)
+  const int share = (length + splits - 1) / splits;
+  const int row0 = min(length, rank * share);
+  const int row1 = min(length, row0 + share);
 
   // this lane's slice of the g query heads, scaled into base 2
   float qf[G][VEC];
@@ -77,13 +107,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh + part * VEC;
   const T* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh + part * VEC;
 
-  for (int base = 0; base < length; base += SLOTS * kUnroll) {
+  for (int base = row0; base < row1; base += SLOTS * kUnroll) {
     // issue every load of the step before using any of them; rows past
-    // `length` re-read the last valid row and are masked below
+    // row1 re-read the share's last row and are masked below
     typename V::raw kr[kUnroll], vr[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int j = min(base + u * SLOTS + slot, length - 1);
+      const int j = min(base + u * SLOTS + slot, row1 - 1);
       kr[u] = load16(kb + (int64_t)j * k_ss);
       vr[u] = load16(vb + (int64_t)j * v_ss);
     }
@@ -111,14 +141,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mn = m[gi];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        if (base + u * SLOTS + slot < length) mn = fmaxf(mn, s[u][gi]);
+        if (base + u * SLOTS + slot < row1) mn = fmaxf(mn, s[u][gi]);
       const float alpha = exp2f(m[gi] - mn);
       l[gi] *= alpha;
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[gi][e] *= alpha;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (base + u * SLOTS + slot >= length) continue;
+        if (base + u * SLOTS + slot >= row1) continue;
         const float p = exp2f(s[u][gi] - mn);
         float vf[VEC];
         V::to_float(vr[u], vf);
@@ -150,9 +180,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // merge the warps through shared memory and write [B, Hq, hd]
+  // merge the warps through shared memory into this CTA's partial
   __shared__ float sm_m[kWarps][G], sm_l[kWarps][G];
   __shared__ float sm_acc[kWarps][G][HD];
+  __shared__ float part_m[G], part_l[G];
+  __shared__ float part_acc[G][HD];
   if (sub == 0) {
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
@@ -178,15 +210,38 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lsum += sm_l[w][gi] * c;
       asum += sm_acc[w][gi][d] * c;
     }
+    part_acc[gi][d] = asum;
+    if (d == 0) {
+      part_m[gi] = mx;
+      part_l[gi] = lsum;
+    }
+  }
+
+  // merge the cluster's partials through distributed shared memory; each
+  // CTA writes every splits-th block of the [g, hd] output
+  cluster.sync();
+  for (int idx = rank * blockDim.x + threadIdx.x; idx < g * HD;
+       idx += splits * blockDim.x) {
+    const int gi = idx / HD, d = idx % HD;
+    float mx = kNegBig;
+    for (int r = 0; r < splits; ++r)
+      mx = fmaxf(mx, *cluster.map_shared_rank(&part_m[gi], r));
+    float lsum = 0.f, asum = 0.f;
+    for (int r = 0; r < splits; ++r) {
+      const float c = exp2f(*cluster.map_shared_rank(&part_m[gi], r) - mx);
+      lsum += *cluster.map_shared_rank(&part_l[gi], r) * c;
+      asum += *cluster.map_shared_rank(&part_acc[gi][d], r) * c;
+    }
     store(out + ((int64_t)b * hq + kvh * g + gi) * HD + d,
           asum / fmaxf(lsum, 1e-30f));
   }
+  cluster.sync();  // no CTA leaves while a peer may still read its partial
 }
 
 struct Args {
   const void *q, *k, *v;
   void* out;
-  int batch, hkv, g, length;
+  int batch, hkv, g, length, splits;
   float scale;
   int k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   cudaStream_t stream;
@@ -194,12 +249,24 @@ struct Args {
 
 template <typename T, int HD, int G>
 cudaError_t launch(const Args& a) {
-  dim3 grid(a.hkv, a.batch);
-  decode_kernel<T, HD, G><<<grid, kWarps * 32, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.hkv, a.g,
-      a.length, a.scale, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss, a.v_sh);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, a.hkv, a.batch);
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, decode_kernel<T, HD, G>, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.out), a.hkv, a.g, a.length, a.scale, a.k_sb, a.k_ss,
+      a.k_sh, a.v_sb, a.v_ss, a.v_sh);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, int HD>
@@ -227,14 +294,17 @@ cudaError_t dispatch_hd(const Args& a, int hd) {
 extern "C" {
 
 // q, out: [B, Hkv*g, hd] contiguous.  k, v: [B, S, Hkv, hd] with unit stride
-// on hd and the given element strides for b, s and h.  Returns the CUDA
-// error of the launch (0 on success); the kernel runs on `stream`.
+// on hd and the given element strides for b, s and h.  `splits` CTAs (one
+// cluster, 1..8) share each (batch, kv head).  Returns the CUDA error of the
+// launch (0 on success); the kernel runs on `stream`.
 int decode_attention(const void* q, const void* k, const void* v, void* out,
                      int dtype, int batch, int hkv, int g, int hd, int length,
-                     float scale, int k_sb, int k_ss, int k_sh, int v_sb,
-                     int v_ss, int v_sh, void* stream) {
-  if (batch < 1 || hkv < 1 || g < 1 || length < 1) return cudaErrorInvalidValue;
-  Args a{q, k, v, out, batch, hkv, g, length, scale,
+                     int splits, float scale, int k_sb, int k_ss, int k_sh,
+                     int v_sb, int v_ss, int v_sh, void* stream) {
+  if (batch < 1 || hkv < 1 || g < 1 || length < 1 || splits < 1 ||
+      splits > kMaxSplits)
+    return cudaErrorInvalidValue;
+  Args a{q, k, v, out, batch, hkv, g, length, splits, scale,
          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
          static_cast<cudaStream_t>(stream)};
   cudaError_t err;

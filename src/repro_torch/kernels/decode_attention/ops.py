@@ -4,7 +4,9 @@ Replaces the TPU kernel `repro/kernels/decode_attention/decode_attention.py`
 `::decode_attention_bhd` and its wrapper `ops.py::decode_attention`.  The
 Hopper kernel is `csrc/decode_attention.cu` (CUDA C++, sm_90a).  It is bound
 by device-memory bytes (each valid K/V row is read once for g query heads);
-its design note is at the top of the source.
+its design note is at the top of the source.  Each (batch, kv head) is one
+thread-block cluster of `split_count(...)` CTAs, each streaming the rows
+`split_rows(...)` gives it, merged through distributed shared memory.
 
 `decode_attention` launches the kernel for CUDA tensors and runs
 `decode_attention_plain` only for CPU tensors.  The reference wrapper
@@ -25,6 +27,28 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 8       # q heads per kv head held in one CTA's registers
+MAX_SPLITS = 8      # CTAs of one cluster: the portable cluster size
+CTAS_PER_SM = 2     # the split count aims at this many CTAs on each SM
+
+
+def split_count(batch: int, hkv: int, sms: int) -> int:
+    """CTAs (one cluster) that share the rows of each (batch, kv head): as
+    many as put about CTAS_PER_SM CTAs on every SM, at most MAX_SPLITS, and
+    1 once B*Hkv alone fills the card.  It depends on neither the length nor
+    the position, so the grid is the same at every decode step."""
+    pairs = batch * hkv
+    if pairs >= sms:
+        return 1
+    return min(MAX_SPLITS, -(-CTAS_PER_SM * sms // pairs))
+
+
+def split_rows(length: int, splits: int) -> list[tuple[int, int]]:
+    """The rows [start, end) each CTA of a cluster streams, as the kernel
+    computes them: ceil(length / splits) each in order, the last shorter or
+    empty."""
+    share = -(-length // splits)
+    return [(min(length, r * share), min(length, (r + 1) * share))
+            for r in range(splits)]
 
 
 def decode_attention_plain(q, k_cache, v_cache, length: int, *,
@@ -36,7 +60,7 @@ def decode_attention_plain(q, k_cache, v_cache, length: int, *,
 
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
-_ARGTYPES = ([_c_ptr] * 4 + [_c_int] * 6 + [ctypes.c_float]
+_ARGTYPES = ([_c_ptr] * 4 + [_c_int] * 7 + [ctypes.c_float]
              + [_c_int] * 6 + [_c_ptr])
 
 
@@ -46,6 +70,11 @@ def _lib() -> ctypes.CDLL:
     lib.decode_attention.argtypes = _ARGTYPES
     lib.decode_attention.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check_cuda_inputs(q, k, v, length: int):
@@ -92,10 +121,11 @@ def decode_attention(q, k_cache, v_cache, length: int, *, scale: float):
     b, hq, hd = q.shape
     hkv = k.shape[2]
     out = torch.empty_like(q)
+    splits = split_count(b, hkv, _sm_count(q.device.index))
     lib = _lib()
     rc = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], b, hkv, hq // hkv, hd, int(length),
+        _DTYPE_CODE[q.dtype], b, hkv, hq // hkv, hd, int(length), splits,
         float(scale), *k.stride()[:3], *v.stride()[:3],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "decode_attention", rc)

@@ -4,6 +4,8 @@ Replaces the TPU kernel `repro/kernels/ssd_scan/ssd_scan.py::ssd_pallas`
 and its wrapper `ops.py::ssd`.  The Hopper kernel is `csrc/ssd_scan.cu`
 (CUDA C++, sm_90a).  It is bound by fp32 operations (no TF32, to meet the
 reference's fp32 tolerances); its design note is at the top of the source.
+One call enqueues four kernels (C.B^T, chunk states, state passing, chunk
+scan) that meet in scratch the wrapper allocates (`scratch_shapes`).
 
 `ssd(impl="pallas")` launches the kernel for CUDA tensors and runs
 `ssd_plain` only for CPU tensors; `impl="xla"` is the plain version on any
@@ -28,6 +30,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 CHUNKS = (16, 32, 64, 128)
 HEAD_DIMS = (16, 32, 64)          # P
 STATE_DIMS = (16, 32, 64, 128)    # N
+_MAX_GRID_YZ = 65535
 
 
 def ssd_plain(x, dt, a, b, c, *, chunk: int, initial_state=None):
@@ -47,7 +50,19 @@ def ssd_plain(x, dt, a, b, c, *, chunk: int, initial_state=None):
 
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
-_ARGTYPES = [_c_ptr] * 8 + [_c_int] * 20 + [_c_ptr]
+_ARGTYPES = [_c_ptr] * 11 + [_c_int] * 20 + [_c_ptr]
+
+
+def scratch_shapes(bsz: int, seqlen: int, heads: int, groups: int, p: int,
+                   n: int, chunk: int) -> dict[str, tuple[int, ...]]:
+    """The fp32 scratch one kernel call needs, with nc = ceil(L / chunk):
+    C.B^T per (batch, chunk, group); each chunk's state contribution,
+    overwritten in place by the state entering that chunk; and each chunk's
+    decay exp(cum_last)."""
+    nc = -(-seqlen // chunk)
+    return {"cb": (bsz, nc, groups, chunk, chunk),
+            "states": (bsz, heads, nc, p, n),
+            "decay": (bsz, heads, nc)}
 
 
 @functools.cache
@@ -76,6 +91,12 @@ def _check_cuda_inputs(x, dt, a, b, c, chunk: int, initial_state):
                          f"{STATE_DIMS}")
     if seqlen < 1:
         raise ValueError("empty sequence")
+    # grid rows: the chunk-scan kernel runs chunk / min(chunk, 64) CTAs per
+    # chunk, the C.B^T kernel one per (batch, group)
+    if -(-seqlen // chunk) * (chunk // min(chunk, 64)) > _MAX_GRID_YZ \
+            or bsz * g > _MAX_GRID_YZ:
+        raise ValueError(f"sequence {seqlen} or batch {bsz} too long for "
+                         f"the kernel's grid")
     if not (x.dtype == b.dtype == c.dtype) or x.dtype not in _DTYPE_CODE:
         raise TypeError(f"dtypes {x.dtype}/{b.dtype}/{c.dtype}: need one of "
                         f"fp32, bf16 for x, b and c")
@@ -119,11 +140,16 @@ def ssd(x, dt, a, b, c, *, chunk: int = 128, impl: str = "xla",
     g, n = b.shape[2], b.shape[3]
     y = torch.empty((bsz, seqlen, h, p), dtype=torch.float32, device=x.device)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = {k: torch.empty(shape, dtype=torch.float32, device=x.device)
+               for k, shape in scratch_shapes(bsz, seqlen, h, g, p, n,
+                                              chunk).items()}
     lib = _lib()
     rc = lib.ssd_scan(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if initial_state is None else initial_state.data_ptr(),
-        y.data_ptr(), state.data_ptr(), _DTYPE_CODE[x.dtype], bsz, seqlen,
+        y.data_ptr(), state.data_ptr(), scratch["cb"].data_ptr(),
+        scratch["states"].data_ptr(), scratch["decay"].data_ptr(),
+        _DTYPE_CODE[x.dtype], bsz, seqlen,
         h, g, p, n, chunk, *x.stride()[:3], *dt.stride(), *b.stride()[:3],
         *c.stride()[:3], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "ssd_scan", rc)
@@ -131,4 +157,4 @@ def ssd(x, dt, a, b, c, *, chunk: int = 128, impl: str = "xla",
     return y, state
 
 
-ssd.launches = 0   # kernel launches since the last reset
+ssd.launches = 0   # kernel calls since the last reset (four device kernels each)

@@ -68,3 +68,58 @@ def test_decode_attention_rejects_other_devices():
     k = torch.empty((1, 8, 2, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.decode_attention(q, k, k, 8, scale=1.0)
+
+
+@pytest.mark.parametrize("b,hkv", [(4, 8), (1, 8), (1, 1), (2, 2), (16, 8)])
+def test_split_rows_cover_each_row_once(b, hkv):
+    """At every length from 1 to the cache size, the rows the cluster's CTAs
+    stream cover [0, length) exactly once, in order; a CTA may get none."""
+    splits = ops.split_count(b, hkv, 132)
+    for length in range(1, 1057):
+        ranges = ops.split_rows(length, splits)
+        assert len(ranges) == splits
+        rows = [r for start, end in ranges for r in range(start, end)]
+        assert rows == list(range(length))
+        assert all(0 <= start <= end <= length for start, end in ranges)
+
+
+@pytest.mark.parametrize("b,hkv,sms,want", [
+    (4, 8, 132, 8),      # llama3.2-3b serving: 32 clusters of 8 CTAs
+    (1, 8, 132, 8),      # capped at the portable cluster size
+    (16, 8, 132, 3),     # 128 pairs: about 2 CTAs on each SM
+    (33, 4, 132, 1),     # B*Hkv alone fills the card
+    (64, 8, 132, 1),
+    (4, 8, 16, 1),       # a smaller card
+])
+def test_split_count_depends_on_pairs_and_sms_only(b, hkv, sms, want):
+    splits = ops.split_count(b, hkv, sms)
+    assert splits == want
+    assert 1 <= splits <= ops.MAX_SPLITS
+
+
+@pytest.mark.parametrize("shape_q,shape_kv,length,match", [
+    ((1, 4, 48), (1, 8, 2, 48), 8, "head_dim 48"),
+    ((1, 18, 32), (1, 8, 2, 32), 8, "at most 8 per kv head"),
+    ((1, 6, 32), (1, 8, 4, 32), 8, "multiple of kv heads"),
+    ((1, 4, 32), (1, 8, 2, 32), 0, r"length 0 outside \[1, 8\]"),
+    ((1, 4, 32), (1, 8, 2, 32), 9, r"length 9 outside \[1, 8\]"),
+    ((2, 4, 32), (1, 8, 2, 32), 8, "do not match q"),
+])
+def test_decode_kernel_input_checks(shape_q, shape_kv, length, match):
+    """What a CUDA launch would refuse is refused before it; the checks do
+    not depend on the device, so they run here on CPU tensors."""
+    q = torch.zeros(shape_q)
+    k = torch.zeros(shape_kv)
+    with pytest.raises(ValueError, match=match):
+        ops._check_cuda_inputs(q, k, k, length)
+
+
+def test_decode_kernel_input_checks_accept_the_cache_in_place():
+    """The model's [B, S, Hkv, hd] cache, read in place, passes; a query that
+    is not contiguous does not."""
+    q = torch.zeros(4, 24, 128)
+    k = torch.zeros(4, 1056, 8, 128)
+    ops._check_cuda_inputs(q, k, k, 1040)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._check_cuda_inputs(q.transpose(1, 2).contiguous()
+                               .transpose(1, 2), k, k, 1040)

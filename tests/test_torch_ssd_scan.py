@@ -197,3 +197,96 @@ def test_ssd_kernel_input_checks_accept_the_model_layout():
     ops._check_cuda_inputs(x, dt, a, bb, cc, 16, torch.zeros(b, h, p, n))
     with pytest.raises(ValueError, match="initial_state"):
         ops._check_cuda_inputs(x, dt, a, bb, cc, 16, torch.zeros(b, h, n, p))
+
+
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk", [
+    (4, 1024, 48, 64, 1, 128, 128),   # the full-width mamba2-780m prefill
+    (4, 1000, 48, 64, 1, 128, 128),   # ragged: the last chunk is partial
+    (2, 20, 8, 16, 2, 16, 16),
+])
+def test_ssd_scratch_shapes(b, l, h, p, g, n, chunk):
+    """One kernel call's scratch: C.B^T per (batch, chunk, group), a state
+    per (batch, head, chunk) and a decay per (batch, head, chunk), with
+    nc = ceil(L / chunk)."""
+    nc = -(-l // chunk)
+    shapes = ops.scratch_shapes(b, l, h, g, p, n, chunk)
+    assert shapes == {"cb": (b, nc, g, chunk, chunk),
+                      "states": (b, h, nc, p, n), "decay": (b, h, nc)}
+    if (b, l, h, p, g, n, chunk) == (4, 1024, 48, 64, 1, 128, 128):
+        assert 4 * np.prod(shapes["cb"]) == 2 * 2 ** 20           # 2 MiB
+        assert 4 * np.prod(shapes["states"]) == 48 * 2 ** 20      # 48 MiB
+
+
+def test_ssd_kernel_input_checks_refuse_a_grid_too_long():
+    """More chunks than a grid row holds (65535 at chunk 16) is refused."""
+    l, h, p, g, n = 16 * 65536, 1, 16, 1, 16
+    x = torch.zeros(1, 1, h, p).expand(1, l, h, p)
+    dt = torch.zeros(1, 1, h).expand(1, l, h)
+    bc = torch.zeros(1, 1, g, n).expand(1, l, g, n)
+    with pytest.raises(ValueError, match="too long for the kernel's grid"):
+        ops._check_cuda_inputs(x, dt, torch.zeros(h), bc, bc, 16, None)
+
+
+def _four_phases(x, dt, a, b, c, chunk, initial_state=None):
+    """The kernel's decomposition in plain torch, through scratch of the
+    shapes `scratch_shapes` gives: C.B^T per (batch, chunk, group), each
+    chunk's own state and decay, the state passing that overwrites each
+    chunk's state with the one entering it, and the chunk scan."""
+    bsz, seqlen, h, p = x.shape
+    g, n = b.shape[2:]
+    shapes = ops.scratch_shapes(bsz, seqlen, h, g, p, n, chunk)
+    nc, rep = shapes["decay"][2], h // g
+    pad = nc * chunk - seqlen
+    x, b, c = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+               for t in (x, b, c))
+    dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    xf = x.reshape(bsz, nc, chunk, h, p)
+    dtf = dt.reshape(bsz, nc, chunk, h)
+    bf = b.reshape(bsz, nc, chunk, g, n)
+    cf = c.reshape(bsz, nc, chunk, g, n)
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    cb = torch.einsum("bcqgn,bckgn->bcgqk", cf, bf) * tril
+    assert cb.shape == shapes["cb"]
+    cum = _cumsum(dtf * a, 2)                                  # [B,nc,Q,H]
+    w = torch.exp(cum[:, :, -1:] - cum) * dtf
+    states = torch.einsum("bckhp,bckhn->bhcpn", xf * w[..., None],
+                          bf.repeat_interleave(rep, dim=3))
+    decay = torch.exp(cum[:, :, -1]).permute(0, 2, 1)
+    assert states.shape == shapes["states"] and decay.shape == shapes["decay"]
+    s = torch.zeros(bsz, h, p, n) if initial_state is None else initial_state
+    for ci in range(nc):
+        s, states[:, :, ci] = (s * decay[:, :, ci, None, None]
+                               + states[:, :, ci], s)
+    diff = cum[:, :, :, None] - cum[:, :, None]                # [B,nc,Q,K,H]
+    lmat = torch.exp(diff.masked_fill(~tril[None, None, :, :, None],
+                                      float("-inf")))
+    scores = cb.repeat_interleave(rep, dim=2).permute(0, 1, 3, 4, 2) \
+        * lmat * dtf[:, :, None]
+    y = torch.exp(cum)[..., None] * torch.einsum(
+        "bcqhn,bhcpn->bcqhp", cf.repeat_interleave(rep, dim=3), states) \
+        + torch.einsum("bcqkh,bckhp->bcqhp", scores, xf)
+    return y.reshape(bsz, nc * chunk, h, p)[:, :seqlen], s
+
+
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk,init", [
+    (1, 512, 4, 64, 1, 128, 128, False),
+    (2, 256, 8, 32, 2, 64, 64, True),
+    (2, 100, 4, 32, 2, 16, 32, True),    # ragged
+])
+def test_ssd_four_phase_decomposition_matches_reference(b, l, h, p, g, n,
+                                                        chunk, init):
+    """The four phases the kernel runs, through its scratch layout, give the
+    reference's y and final state at the fp32 tolerances, at the model's
+    decay and step ranges."""
+    ref_in, port_in = _both(_model_inputs(b, l, h, p, g, n), jnp.float32)
+    s0 = np.random.default_rng(7).standard_normal((b, h, p, n), np.float32) \
+        if init else None
+    y, s = _four_phases(*port_in, chunk,
+                        None if s0 is None else torch.from_numpy(s0))
+    y_want, s_want = ref_ops.ssd(
+        *ref_in, chunk=chunk, impl="xla",
+        initial_state=None if s0 is None else jnp.asarray(s0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_want),
+                               **_tol(jnp.float32))
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_want),
+                               **_state_tol(jnp.float32))
