@@ -7,14 +7,20 @@ Phases, in order; any failed check makes the exit code non-zero and keeps
 the final `{"ok": true, ...}` line from printing:
   1. report the card (nvidia-smi name and power limit), turn TF32 off for
      matmuls and cuDNN, build the CUDA kernels from the sources (timed);
+     fail on a register spill in a main-path instantiation; count the HMMA
+     (tensor-core) instructions of the hd=128 flash kernels where the
+     toolkit has cuobjdump;
   2. hold each kernel against its plain PyTorch version on the card: the
      reference test cases plus the full-width llama3.2-3b and mamba2-780m
      shapes, each in fp32 (tolerance 2e-5; SSD state 1e-4) and bf16 (2e-2;
      SSD state 5e-2); decode lengths whose split-KV shares run empty or
-     ragged (1, 7, 9, 131, 1033 rows, the full cache, B=1); the full-width
-     SSD shape also at the decay and step ranges of the model's init, at
-     L=4096 (32 chunks of state passing), and continued from a carried
-     state;
+     ragged (1, 7, 9, 131, 1033 rows, the full cache, B=1); flash lengths
+     below one mma tile and ragged against its tiles (S = 1, 7, 1000,
+     1040), hd=16 at S=1024 and B=1 at full width, and inputs x3 (a
+     peaky softmax) held against fp64 at twice fp32's own error; the
+     full-width SSD shape also at the decay and step ranges of the model's
+     init, at L=4096 (32 chunks of state passing), and continued from a
+     carried state;
   3. serve llama3.2-3b at full width (B=4, 1024-token prompt, 32 new
      tokens, attn_impl="pallas"): the decode kernel must launch exactly
      28 layers x 31 steps = 868 times and no other kernel; a plain ("xla")
@@ -34,11 +40,14 @@ the final `{"ok": true, ...}` line from printing:
   7. times with CUDA events (median of >= 20, after warm-up, L2 flushed
      before each run): each kernel, its plain version and one PyTorch call
      computing the same function where there is one (the `library_ms`
-     yardstick, used nowhere in the port), their lower bounds on the card,
+     yardstick, used nowhere in the port), their lower bounds on the card
+     (the bytes over the memory rate, or the FLOP at the tensor-core rate
+     of the inputs' type: 3xTF32 for fp32, bf16's own for bf16),
      each kernel's device-only time (torch.profiler: its kernels' self
      device time over the calls, and how many device kernels one call
-     enqueues), prefill and decode of both models, and a torch.profiler
-     breakdown.
+     enqueues; the flash kernel also in bf16), prefill and decode of both
+     models, the llama3.2-3b forward on the flash kernel and with plain
+     attention, and a torch.profiler breakdown.
 Each of phases 3-6 sets every launch count to 0 just before it drives the
 path and reads the counts just after.  Then the `kernels` JSON line, the
 card line and the final line.
@@ -61,10 +70,17 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-# H100 SXM, NVIDIA data sheet (dense): device-memory rate and the fp32 rate
-# outside the tensor cores, the type the kernels compute in
+# H100 SXM, NVIDIA data sheet (dense): device-memory rate, the fp32 rate
+# outside the tensor cores, and the TF32 and bf16 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
+# the fastest the card computes products at each input type's accuracy:
+# fp32-accurate products as three TF32 tensor-core passes (3xTF32), bf16 at
+# its tensor-core rate; every kernel's operations bound uses it
+FLOP_PER_S = {torch.float32: TF32_FLOP_PER_S / 3,
+              torch.bfloat16: BF16_FLOP_PER_S}
 
 DEVICE = "cuda"
 LLAMA, MAMBA = "llama3.2-3b", "mamba2-780m"
@@ -87,11 +103,16 @@ DECODE_CASES = [
     (1, 1056, 24, 8, 128, 1040),
 ]
 # (b, sq, sk, hq, hkv, hd): the reference's FLASH_CASES, then the
-# llama3.2-3b forward shape
+# llama3.2-3b forward shape; then, at its head counts, S=1 and S=7 (fewer
+# rows than one 16-row mma tile), S=1000 and S=1040 (ragged against the
+# 64-row and 64-key tiles), hd=16 at S=1024, and B=1
 FLASH_CASES = [
     (1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64), (1, 384, 384, 4, 1, 32),
     (1, 200, 200, 4, 2, 64), (2, 128, 128, 4, 4, 128), (1, 512, 512, 2, 2, 16),
     (4, 1024, 1024, 24, 8, 128),
+    (4, 1, 1, 24, 8, 128), (4, 7, 7, 24, 8, 128), (4, 1000, 1000, 24, 8, 128),
+    (4, 1040, 1040, 24, 8, 128), (4, 1024, 1024, 24, 8, 16),
+    (1, 1024, 1024, 24, 8, 128),
 ]
 # (b, L, h, p, g, n, chunk): the full-width mamba2-780m prefill shape
 SSD_FULL = (4, 1024, 48, 64, 1, 128, 128)
@@ -106,10 +127,11 @@ SSD_CASES = [
 # the kernel instantiations the fp32 main paths run, as ptxas names them
 # (mangled): decode at hd=128, g<=4; SSD at P=64, N=128 (its C.B^T kernel
 # at N=128); flash at hd=128
+FLASH_MAIN = "flash_kernelIfLi128E"
 MAIN_PATH_INSTANCES = (
     "decode_kernelIfLi128ELi4E", "ssd_chunk_state_kernelIfLi64ELi128E",
     "ssd_chunk_scan_kernelIfLi64ELi128E", "ssd_cb_kernelIfLi128E",
-    "ssd_state_pass_kernel", "flash_kernelIfLi128E")
+    "ssd_state_pass_kernel", FLASH_MAIN)
 # y and final state, as the reference's test_ssd_kernel_matches_ref
 SSD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}
 
@@ -192,6 +214,34 @@ def phase_setup(smoke: Smoke) -> None:
     smoke.check("ptxas: main-path instantiations do not spill",
                 bool(main_path) and not any(k["spill"] for k in main_path),
                 f"{len(main_path)} kernels")
+    # the flash kernel's products run on the tensor cores: HMMA in its SASS
+    for inst in (FLASH_MAIN, "flash_kernelI13__nv_bfloat16Li128E"):
+        hmma = _hmma_count(libs["flash_attention"], inst)
+        smoke.results.setdefault("sass_hmma", {})[inst] = hmma
+        if hmma is None:
+            print(f"sass {inst}: not read (no cuobjdump in the toolkit)")
+        else:
+            smoke.check(f"sass {inst}: HMMA instructions", hmma > 0,
+                        str(hmma))
+
+
+def _hmma_count(lib: Path, kernel: str) -> int | None:
+    """How many HMMA (tensor-core) instructions the SASS of the kernel whose
+    mangled name holds `kernel` has; None where the toolkit has no
+    cuobjdump."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and re.search(r"\bHMMA\b", line):
+            count += 1
+    return count
 
 
 def _ptxas_kernels(log: str) -> list[dict]:
@@ -210,6 +260,17 @@ def _ptxas_kernels(log: str) -> list[dict]:
 
 def _randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+
+def _attention_fp64(q, k, v):
+    """Causal GQA attention computed in fp64: [B,S,Hq,hd] -> [B,S,Hq,hd]."""
+    s, hq, hd = q.shape[1:]
+    g = hq // k.shape[2]
+    kr, vr = (t.double().repeat_interleave(g, dim=2) for t in (k, v))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.double(), kr) * hd ** -0.5
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vr)
 
 
 def _ssd_inputs(gen, b, l, h, p, g, n, dtype):
@@ -275,6 +336,20 @@ def phase_kernels(smoke: Smoke) -> None:
             smoke.check(f"flash_attention b={b} sq={sq} sk={sk} hq={hq} "
                         f"hkv={hkv} hd={hd} {dtype}", ok,
                         f"max_abs_err={err:.3g}")
+    # a peaky softmax: the full-width shape with inputs x3 (scores x9), where
+    # fp32 itself drifts from the exact result.  The kernel keeps fp32's
+    # accuracy if its error against an fp64 computation is at most twice
+    # the plain fp32 version's
+    q, k, v = (3 * _randn(gen, (4, 1024, h, 128), torch.float32)
+               for h in (24, 8, 8))
+    exact = _attention_fp64(q, k, v)
+    err_kernel = float((fa.flash_attention(q, k, v, causal=True).double()
+                        - exact).abs().max())
+    err_plain = float((fa.flash_attention_plain(q, k, v, causal=True)
+                       .double() - exact).abs().max())
+    smoke.check("flash_attention inputs x3 float32: error vs fp64 within 2x "
+                "the plain fp32 version's", err_kernel <= 2 * err_plain,
+                f"kernel {err_kernel:.3g}, plain fp32 {err_plain:.3g}")
     for b, l, h, p, g, n, chunk in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = _ssd_inputs(gen, b, l, h, p, g, n, dtype)
@@ -492,7 +567,6 @@ def _launches(smoke, path, name):
 def phase_times(smoke: Smoke) -> None:
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ssd_scan import ops as ssd
     flush = torch.empty(64 * 2 ** 20, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(2)
@@ -532,35 +606,13 @@ def phase_times(smoke: Smoke) -> None:
             nbytes, flops,
             {"b": BATCH, "hq": hq, "hkv": hkv, "hd": hd, "s_cache": s_cache,
              "length": length, "dtype": "float32"}))
-        # flash: the full-width cache-free forward's attention
-        q = _randn(gen, (BATCH, PROMPT, hq, hd), f32)
-        k = _randn(gen, (BATCH, PROMPT, hkv, hd), f32)
-        v = _randn(gen, (BATCH, PROMPT, hkv, hd), f32)
-        got = fa.flash_attention(q, k, v, causal=True, scale=scale)
-        want = fa.flash_attention_plain(q, k, v, causal=True, scale=scale)
-        nbytes = 4 * (2 * BATCH * PROMPT * hq * hd + 2 * BATCH * PROMPT * hkv * hd)
-        flops = 4 * BATCH * hq * hd * (PROMPT * (PROMPT + 1) // 2)
-        kernels.append(_kernel_entry(
-            "flash_attention",
-            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/flash_attention.py:79",
-            smoke, _launches(smoke, f"forward {LLAMA}", "flash_attention"),
-            got, want,
-            time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
-                                               scale=scale), flush),
-            time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
-                                                     scale=scale), flush),
-            time_ms(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, scale=scale, enable_gqa=True), flush),
-            [device_time(lambda: fa.flash_attention(q, k, v, causal=True,
-                                                    scale=scale),
-                         flush, "flash_kernel", clean_l2=clean)
-             for clean in (False, True)],
-            nbytes, flops,
-            {"b": BATCH, "s": PROMPT, "hq": hq, "hkv": hkv, "hd": hd,
-             "dtype": "float32"}))
+        # flash: the full-width cache-free forward's attention, in fp32 (the
+        # main path) and in bf16 (nested in the fp32 entry)
         del q, k, v, kq, kk, kv, got, want
+        kernels.append(_flash_entry(smoke, gen, flush, hq, hkv, hd, scale,
+                                    f32))
+        kernels[-1]["bf16"] = _flash_entry(smoke, gen, flush, hq, hkv, hd,
+                                           scale, torch.bfloat16)
         # ssd_scan: one layer of the full-width mamba2-780m prefill, seeded
         # from the (zero) cache state as the serving path seeds it
         ms = _full_cfg(MAMBA, "pallas").mamba_spec
@@ -610,11 +662,48 @@ def phase_times(smoke: Smoke) -> None:
         _model_times(smoke, flush, arch)
 
 
+def _flash_entry(smoke, gen, flush, hq, hkv, hd, scale, dtype) -> dict:
+    """The flash kernel's `kernels`-line entry at the llama3.2-3b forward
+    shape in `dtype`."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    q = _randn(gen, (BATCH, PROMPT, hq, hd), dtype)
+    k = _randn(gen, (BATCH, PROMPT, hkv, hd), dtype)
+    v = _randn(gen, (BATCH, PROMPT, hkv, hd), dtype)
+    got = fa.flash_attention(q, k, v, causal=True, scale=scale)
+    want = fa.flash_attention_plain(q, k, v, causal=True, scale=scale)
+    nbytes = q.element_size() * (2 * BATCH * PROMPT * hq * hd
+                                 + 2 * BATCH * PROMPT * hkv * hd)
+    flops = 4 * BATCH * hq * hd * (PROMPT * (PROMPT + 1) // 2)
+    return _kernel_entry(
+        "flash_attention",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:79",
+        smoke, _launches(smoke, f"forward {LLAMA}", "flash_attention"),
+        got, want,
+        time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                           scale=scale), flush),
+        time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                                 scale=scale), flush),
+        time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=scale, enable_gqa=True), flush),
+        [device_time(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                scale=scale),
+                     flush, "flash_kernel", clean_l2=clean)
+         for clean in (False, True)],
+        nbytes, flops,
+        {"b": BATCH, "s": PROMPT, "hq": hq, "hkv": hkv, "hd": hd,
+         "dtype": str(dtype).removeprefix("torch.")}, dtype=dtype)
+
+
 def _model_times(smoke, flush, arch) -> None:
     """Prefill and decode-step times of one model on the kernel path at full
     width, and where the time goes (torch.profiler over one prefill and over
-    three decode steps).  For mamba2-780m also the prefill with the plain
-    SSD scan, the kernel's end-to-end counterpart."""
+    three decode steps).  The kernels' end-to-end counterparts: for
+    mamba2-780m the prefill with the plain SSD scan; for llama3.2-3b the
+    cache-free forward (the flash kernel's path) on the kernel and with
+    plain attention."""
     import dataclasses
     from repro_torch.models import io, stack
     cfg = _full_cfg(arch, "pallas")
@@ -630,6 +719,15 @@ def _model_times(smoke, flush, arch) -> None:
                 dataclasses.replace(cfg, ssd_impl="xla"), PROMPT + NEW)
             times["prefill_ms_plain_ssd"] = time_ms(
                 lambda: plain(params, batch), flush, reps=10, warmup=1)
+        else:
+            fwd = {"tokens": batch["tokens"]}
+            cfg_plain = dataclasses.replace(cfg, attn_impl="xla")
+            times["forward_ms"] = time_ms(
+                lambda: stack.forward(params, cfg, fwd), flush, reps=10,
+                warmup=1)
+            times["forward_ms_plain_attn"] = time_ms(
+                lambda: stack.forward(params, cfg_plain, fwd), flush,
+                reps=10, warmup=1)
         cache, logits = prefill(params, batch)
         tok = logits.argmax(-1)[:, None].to(torch.int32)
         decode = stack.build_decode_fn(cfg)
@@ -687,15 +785,18 @@ def _profile(fn) -> dict:
 
 def _kernel_entry(name, source, replaces, smoke, launches, got, want, ms,
                   plain_ms, library_ms, device, nbytes, flops, shape,
-                  library_note=None):
+                  library_note=None, dtype=torch.float32):
     """One entry of the `kernels` line; checks the timed inputs' output
-    against the plain version at the fp32 tolerance.  `device` holds
+    against the plain version at `dtype`'s tolerance.  `device` holds
     device_time()'s (ms, device kernels per call) after the write flush
-    and after the read flush."""
-    err, ok = err_within(got, want, TOL[torch.float32])
-    smoke.check(f"{name}: timed inputs vs plain", ok, f"max_abs_err={err:.3g}")
+    and after the read flush.  The operations bound is at FLOP_PER_S of
+    `dtype`; the bound at the fp32 rate outside the tensor cores is kept
+    beside it."""
+    err, ok = err_within(got, want, TOL[dtype])
+    smoke.check(f"{name}: timed inputs vs plain ({shape['dtype']})", ok,
+                f"max_abs_err={err:.3g}")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / FLOP_PER_S[dtype] * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "kernel_ms": ms, "device_ms": device[0][0],
@@ -704,6 +805,8 @@ def _kernel_entry(name, source, replaces, smoke, launches, got, want, ms,
             "device_ms_by_kernel": device[0][2], "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_fp32_fma": max(t_bytes,
+                                     flops / FP32_FLOP_PER_S * 1e3),
             "library_ms": library_ms,
             **({"library_note": library_note} if library_note else {}),
             "shape": shape, "bytes": nbytes, "flops": flops}

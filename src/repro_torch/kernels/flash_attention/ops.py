@@ -2,9 +2,13 @@
 
 Replaces the TPU kernel `repro/kernels/flash_attention/flash_attention.py`
 `::flash_attention_bhsd` and its wrapper `ops.py::flash_attention`.  The
-Hopper kernel is `csrc/flash_attention.cu` (CUDA C++, sm_90a).  It is bound
-by fp32 operations (no TF32, to meet the reference's 2e-5 fp32 tolerance);
-its design note is at the top of the source.
+Hopper kernel is `csrc/flash_attention.cu` (CUDA C++, sm_90a).  Both of its
+products run on the TF32 tensor cores (`mma.sync`); fp32 operands are split
+into two tf32 halves and multiplied in three passes (3xTF32), which meets
+the reference's 2e-5 fp32 tolerance where one TF32 pass cannot, so in fp32
+it is bound by three TF32 passes over its FLOP (in bf16 by the bf16
+tensor-core rate, which this route does not approach).  Its design note is
+at the top of the source.
 
 `flash_attention` launches the kernel for causal calls on CUDA tensors and
 runs `flash_attention_plain` for CPU tensors.  Non-causal calls go to the

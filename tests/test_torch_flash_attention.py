@@ -62,3 +62,107 @@ def test_flash_attention_rejects_other_devices():
     k = torch.empty((1, 16, 2, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flash_attention(q, k, k)
+
+
+# The CUDA kernel's arithmetic, emulated in plain torch: its products run on
+# TF32 tensor cores, with each fp32 operand split as hi = x rounded to tf32
+# and lo = x - hi (which the tensor cores read truncated to tf32), and each
+# product taken as lo*hi' + hi*lo' + hi*hi' in fp32 (3xTF32).  bf16 operands
+# are exact in tf32, so its bf16 path takes Q.K^T in one pass and P.V in
+# two (P is fp32 and keeps its split).  These tests guard the design's
+# numerics, not the CUDA code: they run no port code and would not see a
+# change to the kernel's own arithmetic.  The kernel itself is held against
+# its plain version on the card (chip_smoke.py, phase 2).
+
+
+def _tf32(x):
+    """Round fp32 to tf32 (10 mantissa bits), to nearest with ties away
+    from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _truncate_tf32(x):
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _truncate_tf32(x - hi)
+
+
+def _product(a, b, passes):
+    """a @ b with tf32 operands in fp32 accumulation: 3 = both split, 2 = a
+    split and b exact in tf32, 1 = a single tf32 pass."""
+    a_hi, a_lo = _split(a)
+    if passes == 1:
+        return a_hi @ _tf32(b)
+    if passes == 2:
+        return a_lo @ b + a_hi @ b
+    b_hi, b_lo = _split(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _emulated_kernel(q, k, v, qk_passes, pv_passes):
+    """q: [B,Sq,Hq,hd]; k,v: [B,Sk,Hkv,hd], fp32 -> [B,Sq,Hq,hd] fp32; the
+    kernel's causal online softmax in base 2, over the whole row at once."""
+    sq, hq, hd = q.shape[1:]
+    sk, hkv = k.shape[1], k.shape[2]
+    kr = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+    vr = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+    s = _product(q.transpose(1, 2), kr.transpose(-1, -2), qk_passes)
+    s = s * (hd ** -0.5 * 1.4426950408889634)
+    mask = torch.arange(sk)[None, :] > torch.arange(sq)[:, None]
+    s = s.masked_fill(mask, float("-inf"))
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    out = _product(p, vr, pv_passes) / p.sum(-1, keepdim=True)
+    return out.transpose(1, 2)
+
+
+FP32_CASES = [c for c in FLASH_CASES if c[6] == jnp.float32]
+BF16_CASES = [c for c in FLASH_CASES if c[6] == jnp.bfloat16]
+
+
+def _oracle(arrays, dtype):
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in arrays)
+    return np.asarray(ref_oracle.attention_ref(jq, jk, jv, causal=True),
+                      np.float32)
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,dtype,bq,bk", FP32_CASES)
+def test_flash_3xtf32_meets_fp32_tolerance(b, sq, sk, hq, hkv, hd, dtype, bq,
+                                           bk):
+    """The kernel's fp32 arithmetic (3xTF32 on both products) meets the
+    reference's 2e-5 fp32 tolerance against its oracle."""
+    arrays = _inputs(b, sq, sk, hq, hkv, hd)
+    got = _emulated_kernel(*(torch.from_numpy(a) for a in arrays), 3, 3)
+    np.testing.assert_allclose(got.numpy(), _oracle(arrays, dtype),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,dtype,bq,bk", FP32_CASES)
+def test_flash_single_tf32_pass_misses_fp32_tolerance(b, sq, sk, hq, hkv, hd,
+                                                      dtype, bq, bk):
+    """Why the kernel splits: one TF32 pass on each product is ~1e-3 off,
+    far outside the 2e-5 fp32 tolerance."""
+    arrays = _inputs(b, sq, sk, hq, hkv, hd)
+    got = _emulated_kernel(*(torch.from_numpy(a) for a in arrays), 1, 1)
+    want = _oracle(arrays, dtype)
+    assert not np.allclose(got.numpy(), want, **_tol(dtype))
+    assert np.abs(got.numpy() - want).max() > 1e-4
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,dtype,bq,bk", BF16_CASES)
+def test_flash_bf16_passes_keep_fp32_accuracy(b, sq, sk, hq, hkv, hd, dtype,
+                                              bq, bk):
+    """The kernel's bf16 path: Q.K^T in one pass (bf16 is exact in tf32),
+    P.V in two (P split).  Before the output's bf16 rounding it is within
+    the fp32 tolerance of the oracle on the same bf16-rounded inputs, and
+    after it within the bf16 tolerance."""
+    arrays = _inputs(b, sq, sk, hq, hkv, hd)
+    rounded = [torch.from_numpy(a).to(torch.bfloat16).float() for a in arrays]
+    got = _emulated_kernel(*rounded, 1, 2)
+    want32 = _oracle([r.numpy() for r in rounded], jnp.float32)
+    np.testing.assert_allclose(got.numpy(), want32, **_tol(jnp.float32))
+    np.testing.assert_allclose(got.to(torch.bfloat16).float().numpy(),
+                               _oracle(arrays, dtype), **_tol(dtype))
