@@ -47,15 +47,36 @@ the final `{"ok": true, ...}` line from printing:
      device time over the calls, and how many device kernels one call
      enqueues; the flash kernel also in bf16), prefill and decode of both
      models, the llama3.2-3b forward on the flash kernel and with plain
-     attention, and a torch.profiler breakdown.
-Each of phases 3-6 sets every launch count to 0 just before it drives the
-path and reads the counts just after.  Then the `kernels` JSON line, the
-card line and the final line.
+     attention, and a torch.profiler breakdown;
+  8. the FOS runtime on the card (run before phase 7, after phase 6):
+     (a) `serve_daemon` as the reference's (mandelbrot and sobel tenants on
+     one slot and its stream): 14 chunks, every output equal to a direct
+     `run_placement` on the card, the mandelbrot counts within 1% of
+     pixels of the CPU's (the iteration is chaotic and the card rounds
+     otherwise); (b) a deterministic preemption (8 low-priority chunks
+     on a preemptive 1-slot shell, then a priority-5 request): >= 1
+     preemption, every chunk once and right; (c) the contract run: admitted +
+     degraded + rejected = 6, each rejected future raising
+     AdmissionRejected; (d) the `lm-forward` module at the full width of
+     llama3.2-3b (bf16 compute, as the reference config) through the
+     daemon, 3 chunks: exactly 28 x (3 + 1 warm-up) = 112 flash kernel
+     launches and no other kernel, one reconfiguration and two reuses, a
+     second placement a cache hit, logits within 5e-2 relative L2 of the
+     plain path on the same weights; then the chunk time of each zoo
+     module on the card (CUDA events on the slot's stream, median of 5),
+     a torch.profiler breakdown of one lm-forward and one mandelbrot
+     chunk, and the flash kernel alone at the module's attention shape
+     beside SDPA in bf16.
+Each of phases 3-6 and 8 sets every launch count to 0 just before it
+drives a path and reads the counts just after.  Then the `kernels` JSON
+line, the card line and the final line.
 
 It imports nothing of jax or of the reference package `repro`.
 """
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import re
 import statistics
@@ -68,7 +89,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from repro_torch.core import zoo  # noqa: E402
+
+# the lm-forward zoo module at full width, as a registry entrypoint
+# ("chip_smoke:build_lm_forward_full")
+build_lm_forward_full = functools.partial(zoo.build_lm_forward, reduced=False)
 
 # H100 SXM, NVIDIA data sheet (dense): device-memory rate, the fp32 rate
 # outside the tensor cores, and the TF32 and bf16 tensor-core rates
@@ -506,6 +534,273 @@ def phase_forward(smoke: Smoke, arch: str) -> None:
                 f"max_abs_err={err:.3g}")
 
 
+def _resolved(handles) -> list:
+    """Each handle's chunk outputs; raises if a future failed."""
+    return [h.future.result(timeout=600) for h in handles]
+
+
+def _direct(module_builder, slot, *args):
+    """One direct run of a zoo module, placed on its own on `slot`."""
+    from repro_torch.core.module import AccelModule, run_placement
+    pl = AccelModule("direct", module_builder, [1]).place(slot, 1)
+    return run_placement(pl, *args)
+
+
+def _chunk_ms(placement, args, reps=5) -> float:
+    """Median time of one run_placement chunk, CUDA events on the slot's
+    stream (its inputs' upload included), after one warm-up chunk."""
+    from repro_torch.core.module import run_placement
+    stream = placement.slot.stream
+    run_placement(placement, *args)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        run_placement(placement, *args)
+        end.record(stream)
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_daemon(smoke: Smoke) -> None:
+    from repro_torch.core import Daemon, PolicyConfig, Shell, \
+        default_registry, uniform_shell
+    from repro_torch.core.slo import AdmissionRejected
+    from repro_torch.launch.serve import DaemonServeRun, serve_daemon
+    res = smoke.results.setdefault("daemon", {})
+    slot = Shell(uniform_shell("direct1_s1", (1, 1), 1)).slots[0]
+
+    # (a) serve_daemon as the reference runs it, on one slot of the card
+    out = serve_daemon(DaemonServeRun())
+    s = out["stats"]
+    smoke.check("daemon: serve_daemon chunks", s["chunks"] == 14,
+                f"{s['chunks']} (want 14)")
+    live = _resolved(out["handles"]["live"])
+    batch = _resolved(out["handles"]["batch"])
+    re_t, im_t = out["inputs"]["mandelbrot"]
+    img = out["inputs"]["sobel"][0]
+    mandel = _direct(zoo.build_mandelbrot, slot, re_t, im_t)
+    edges = _direct(zoo.build_sobel, slot, img)
+    smoke.check("daemon: every sobel output equals a direct run",
+                all(torch.equal(o, edges) for (o,) in live), f"{len(live)}")
+    smoke.check("daemon: every mandelbrot output equals a direct run",
+                all(torch.equal(o, mandel) for outs in batch for o in outs),
+                f"{sum(len(o) for o in batch)}")
+    cpu = zoo.build_mandelbrot(None, 1).fn(None, torch.from_numpy(re_t),
+                                           torch.from_numpy(im_t))
+    differ = int((mandel.cpu() != cpu).sum())
+    smoke.check("daemon: mandelbrot counts vs the CPU's (<= 1% of pixels)",
+                differ <= 0.01 * cpu.numel(),
+                f"{differ} of {cpu.numel()} pixels differ")
+    res["serve_daemon"] = {
+        "live_p95_ms": out["live_p95_ms"], "slo_misses": out["slo_misses"],
+        "wall_s": out["wall_s"], "stats": s,
+        "sched_us_per_pass": s["sched_ns"] / max(1, s["sched_calls"]) / 1e3,
+        "mandelbrot_pixels_differing_from_cpu": differ}
+    print(f"   serve_daemon: live p95 {out['live_p95_ms']:.1f} ms, "
+          f"{out['slo_misses']} SLO misses, wall {out['wall_s']:.3f} s, "
+          f"stats {s}, scheduling "
+          f"{res['serve_daemon']['sched_us_per_pass']:.1f} us a pass")
+
+    # (b) the preemption recipe: saturate one slot, then a priority-5 job
+    d = Daemon(Shell(uniform_shell("preempt1_s1", (1, 1), 1)),
+               default_registry(), PolicyConfig(preemptive=True))
+    try:
+        lo = d.submit("batch", "mandelbrot", [(re_t, im_t)] * 8, priority=0)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:  # a chunk in flight, then 50 ms
+            with d._lock:
+                if d.state.active:
+                    break
+            time.sleep(0.005)
+        time.sleep(0.05)
+        hi = d.submit("live", "sobel", [(img,)], priority=5)
+        (hi_out,), lo_outs = _resolved([hi, lo])
+        st = dict(d.stats)
+    finally:
+        d.shutdown()
+    smoke.check("daemon: preemption recipe preempts", st["preemptions"] >= 1,
+                f"{st['preemptions']} preemptions")
+    smoke.check("daemon: every preempted job's chunk resolves once, right",
+                len(lo_outs) == 8 and st["chunks"] == 9
+                and all(torch.equal(o, mandel) for o in lo_outs)
+                and torch.equal(hi_out, edges), f"stats {st}")
+    res["preemption"] = st
+
+    # (c) the contract run
+    out = serve_daemon(DaemonServeRun(contract=True))
+    lv = out["slo"]["live"]
+    counts = (lv["admitted"], lv["degraded"], lv["rejected"])
+    smoke.check("daemon: contract admitted + degraded + rejected = 6",
+                sum(counts) == 6, f"{counts}")
+    rejected = [h for h in out["handles"]["live"]
+                if h.future.exception() is not None]
+    smoke.check("daemon: each rejected future raises AdmissionRejected",
+                len(rejected) == lv["rejected"]
+                and all(isinstance(h.future.exception(), AdmissionRejected)
+                        for h in rejected), f"{len(rejected)} rejected")
+    _resolved(out["handles"]["batch"])
+    res["contract"] = {"admitted": counts[0], "degraded": counts[1],
+                       "rejected": counts[2],
+                       "attainment": lv["attainment"],
+                       "live_p95_ms": out["live_p95_ms"]}
+    print(f"   contract: {counts[0]} admitted / {counts[1]} degraded / "
+          f"{counts[2]} rejected, attainment {lv['attainment']}")
+
+    res["lm_forward_full"] = _lm_forward_full(smoke, slot, (re_t, im_t),
+                                              (img,))
+    gc.collect()                    # the full-width weights go here
+    torch.cuda.empty_cache()
+    res["lm_forward_full"]["flash_bf16_s64"] = _flash_lm_shape(smoke)
+
+
+def _lm_forward_full(smoke, slot, mandel_args, sobel_args) -> dict:
+    """(d): the lm-forward module at full width through the daemon."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core import Daemon, ImplAlt, ModuleDescriptor, Shell, \
+        default_registry, uniform_shell
+    from repro_torch.core.module import AccelModule, run_placement
+    from repro_torch.models import stack
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    cfg = configs.get(LLAMA)
+    reg = default_registry()
+    reg.register_module(ModuleDescriptor(
+        "lm-forward-full", entrypoint="chip_smoke:build_lm_forward_full",
+        impls=(ImplAlt("x1", 1, 20.0),)))
+    shell = Shell(uniform_shell("lm1_s1", (1, 1), 1))
+    d = Daemon(shell, reg)
+    try:
+        mod = d._module("lm-forward-full")
+        t0 = time.perf_counter()
+        mod.program(shell.slots[0], 1)
+        host = mod.host_weights(1)        # the CPU init, timed on its own
+        init_s = time.perf_counter() - t0
+        n_bytes = sum(t.numel() * t.element_size() for t in
+                      _leaves(host))
+        print(f"   lm-forward-full: CPU init of "
+              f"{sum(t.numel() for t in _leaves(host)) / 1e9:.3f} B params "
+              f"({n_bytes / 1e9:.2f} GB) in {init_s:.1f} s")
+        tokens = np.random.default_rng(11).integers(
+            0, cfg.vocab, (3, 8, 64), dtype=np.int32)
+        _reset_launches()
+        h = d.submit("lm", "lm-forward-full", [(t,) for t in tokens])
+        (outs,) = _resolved([h])
+        launches = _read_launches()
+        st = dict(d.stats)
+        (pl,) = d._placements.values()
+    finally:
+        d.shutdown()
+    want = {"decode_attention": 0, "flash_attention": 28 * (3 + 1),
+            "ssd_scan": 0}
+    smoke.results.setdefault("launches", {})["daemon lm-forward-full"] = \
+        launches
+    _check_launches(smoke, "daemon lm-forward-full", launches, want)
+    smoke.check("daemon lm-forward-full: one reconfiguration, two reuses",
+                st["reconfigurations"] == 1 and st["reuses"] == 2,
+                f"stats {st}")
+    # the plain path on the same weights and tokens
+    cfg_plain = dataclasses.replace(cfg, attn_impl="xla")
+    rel, abs_err = [], []
+    with torch.inference_mode():
+        for toks, got in zip(tokens, outs):
+            t = torch.from_numpy(toks).to(slot.device)
+            hp, _ = stack.forward(pl.weights_on_slot, cfg_plain,
+                                  {"tokens": t})
+            want_l = stack.unembed(pl.weights_on_slot, cfg_plain,
+                                   hp[:, -1:])[:, 0][:, :cfg.vocab]
+            got_l = got[:, :cfg.vocab].float()
+            rel.append(float((got_l - want_l).norm() / want_l.norm()))
+            abs_err.append(float((got_l - want_l).abs().max()))
+    smoke.check("daemon lm-forward-full: logits vs plain path "
+                "(relative L2 <= 5e-2)",
+                all(r <= 5e-2 for r in rel) and all(
+                    bool(torch.isfinite(o).all()) for o in outs)
+                and all(tuple(o.shape) == (8, cfg.padded_vocab)
+                        for o in outs),
+                f"relative L2 {max(rel):.3g}, max_abs_err {max(abs_err):.3g}")
+    second = mod.place(pl.slot, 1)
+    smoke.check("daemon lm-forward-full: a second placement is a cache hit",
+                second.cache_hit, f"cache_hit={second.cache_hit}")
+    del second
+    lm = {"params": sum(t.numel() for t in _leaves(host)),
+          "weight_bytes": n_bytes, "cpu_init_s": init_s,
+          "compile_time_s": pl.compile_time_s, "load_time_s": pl.load_time_s,
+          "upload_gb_per_s": n_bytes / pl.load_time_s / 1e9,
+          "launches": launches, "stats": st, "relative_l2": rel,
+          "max_abs_err": abs_err}
+    print(f"   lm-forward-full: compile {pl.compile_time_s:.3f} s, load "
+          f"{pl.load_time_s:.3f} s ({lm['upload_gb_per_s']:.2f} GB/s)")
+    # each zoo module's chunk on the card, beside the registry's estimate
+    chunk, placed = {}, {"lm-forward-full": (pl, (tokens[0],))}
+    for name, builder, args in (
+            ("mandelbrot", zoo.build_mandelbrot, mandel_args),
+            ("sobel", zoo.build_sobel, sobel_args),
+            ("matmul", zoo.build_matmul,
+             (np.random.default_rng(12).standard_normal((512, 512))
+              .astype(np.float32),))):
+        placed[name] = (AccelModule(name, builder, [1]).place(slot, 1), args)
+    for name, (placement, args) in placed.items():
+        chunk[name] = _chunk_ms(placement, args)
+    lm["chunk_ms"] = chunk
+    lm["est_chunk_ms_x1"] = {"mandelbrot": 12.0, "sobel": 6.0,
+                             "matmul": 4.0, "lm-forward": 20.0}
+    print(f"   chunk ms on the card: {chunk}")
+    # where a chunk's time goes: one chunk of the two slowest modules
+    lm["profile"] = {
+        f"{name} chunk": _profile(
+            lambda: run_placement(placed[name][0], *placed[name][1]))
+        for name in ("lm-forward-full", "mandelbrot")}
+    return lm
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def _flash_lm_shape(smoke) -> dict:
+    """The flash kernel alone at the lm-forward module's attention shape
+    (bf16, B=8, S=64, Hq=24, Hkv=8, hd=128, causal) beside one SDPA
+    call in bf16 at the same shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    b, s, hq, hkv, hd = 8, 64, 24, 8, 128
+    dt = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    q = _randn(gen, (b, s, hq, hd), dt)
+    k = _randn(gen, (b, s, hkv, hd), dt)
+    v = _randn(gen, (b, s, hkv, hd), dt)
+    flush = torch.empty(64 * 2 ** 20, device=DEVICE)
+    err, ok = err_within(fa.flash_attention(q, k, v, causal=True),
+                         fa.flash_attention_plain(q, k, v, causal=True),
+                         TOL[dt])
+    smoke.check("flash_attention bf16 at the lm-forward shape vs plain", ok,
+                f"max_abs_err={err:.3g}")
+    nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
+    flops = 4 * b * hq * hd * (s * (s + 1) // 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOP_PER_S[dt] * 1e3
+    device = device_time(lambda: fa.flash_attention(q, k, v, causal=True),
+                         flush, "flash_kernel")
+    return {"shape": {"b": b, "s": s, "hq": hq, "hkv": hkv, "hd": hd,
+                      "dtype": "bfloat16"},
+            "max_abs_err": err,
+            "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                          flush),
+            "device_ms": device[0],
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True), flush),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def time_ms(fn, flush, reps=30, warmup=3) -> float:
     """Median device time of fn() over `reps` runs, CUDA events around each
     run, the L2 cache flushed (a 256 MB write) before each."""
@@ -829,9 +1124,11 @@ def main() -> int:
                 lambda: phase_serve(smoke, MAMBA))
     smoke.phase(f"6 forward {MAMBA} at full width",
                 lambda: phase_forward(smoke, MAMBA))
+    smoke.phase("8 FOS daemon on the card", lambda: phase_daemon(smoke))
     smoke.phase("7 times", lambda: phase_times(smoke))
     r = smoke.results
-    for key in ("launches", "serve", "forward", "times", "profile"):
+    for key in ("launches", "serve", "forward", "times", "profile",
+                "daemon"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"total {time.perf_counter() - t0:.1f} s; "

@@ -6,15 +6,20 @@ into a shared library under `<repo>/build/kernels/` (one nvcc process per
 source, all started together), named by a digest of the source, the shared
 headers and the flags, so an edited source is rebuilt and an unchanged one
 is not.  Nothing is built or loaded when a module is imported.
+
+Building and loading are safe across threads (the FOS daemon runs chunks
+in a pool of workers): one lock serialises `build` and `load`, so two
+workers that first reach a kernel together run nvcc once and neither sees
+a library before it is whole and bound.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
@@ -27,6 +32,8 @@ SOURCES = {
     "ssd_scan": _KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",
 }
 INCLUDE = _KERNELS / "csrc"
+_LOCK = threading.RLock()
+_LIBS: dict[str, ctypes.CDLL] = {}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               f"-I{INCLUDE}"]
@@ -53,37 +60,50 @@ def library_path(name: str) -> Path:
 def build(names=None) -> dict[str, Path]:
     """Compile the named kernels (default: all) that are not built yet, in
     parallel.  The compiler's report (-Xptxas -v: registers, shared memory,
-    spills) is kept beside each library as `.log`.  Raises on any failure."""
+    spills) is kept beside each library as `.log`.  Raises on any failure.
+    Another process may build the same library at the same time: each
+    writes its own temporary file and renames it into place."""
     names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {n: library_path(n) for n in names}
-    procs = {}
-    for n, lib in todo.items():
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        procs[n] = (subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, lib)
-    errors = []
-    for n, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
-        lib.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            errors.append(f"nvcc failed for {n} (rc {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, lib)
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return todo
+    with _LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        todo = {n: library_path(n) for n in names}
+        procs = {}
+        for n, lib in todo.items():
+            if lib.exists():
+                continue
+            tmp = lib.with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp")
+            procs[n] = (subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, lib)
+        errors = []
+        for n, (proc, tmp, lib) in procs.items():
+            log, _ = proc.communicate()
+            lib.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                errors.append(f"nvcc failed for {n} "
+                              f"(rc {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, lib)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return todo
 
 
-@functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library `name`, built first if needed."""
-    return ctypes.CDLL(str(build([name])[name]))
+def load(name: str, bind=None) -> ctypes.CDLL:
+    """The kernel library `name`, built first if needed.  `bind(lib)` (the
+    caller's argtypes and restypes) runs once, before any caller gets the
+    library."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            if bind is not None:
+                bind(lib)
+            _LIBS[name] = lib
+        return lib
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:

@@ -64,12 +64,13 @@ _ARGTYPES = ([_c_ptr] * 4 + [_c_int] * 7 + [ctypes.c_float]
              + [_c_int] * 6 + [_c_ptr])
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("decode_attention")
+def _bind(lib: ctypes.CDLL) -> None:
     lib.decode_attention.argtypes = _ARGTYPES
     lib.decode_attention.restype = ctypes.c_int
-    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("decode_attention", _bind)
 
 
 @functools.cache

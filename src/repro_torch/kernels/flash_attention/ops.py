@@ -20,7 +20,6 @@ layout through strides and masks the ragged edge itself.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -44,12 +43,13 @@ _ARGTYPES = ([_c_ptr] * 4 + [_c_int] * 7 + [ctypes.c_float]
              + [_c_int] * 9 + [_c_ptr])
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention.argtypes = _ARGTYPES
     lib.flash_attention.restype = ctypes.c_int
-    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("flash_attention", _bind)
 
 
 def _check_cuda_inputs(q, k, v):

@@ -18,7 +18,6 @@ ragged last chunk as zero rows with dt = 0, and seeds its state from
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -65,12 +64,13 @@ def scratch_shapes(bsz: int, seqlen: int, heads: int, groups: int, p: int,
             "decay": (bsz, heads, nc)}
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ssd_scan")
+def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_scan.argtypes = _ARGTYPES
     lib.ssd_scan.restype = ctypes.c_int
-    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("ssd_scan", _bind)
 
 
 def _check_cuda_inputs(x, dt, a, b, c, chunk: int, initial_state):

@@ -1,11 +1,17 @@
-"""Serving driver: prefill + greedy batched decode on one device.
+"""Serving: prefill + batched decode, optionally via the FOS daemon.
 
-Mirrors `repro/launch/serve.py::serve`.  The multi-tenant `--daemon` mode
-(the FOS runtime, ROADMAP A6-A8) is not part of this CLI yet.
+Mirrors `repro/launch/serve.py`.  Single-tenant mode runs prefill and
+greedy decode directly on one device; multi-tenant mode (`--daemon`)
+routes batched requests through the resource-elastic daemon with
+per-tenant priorities and deadlines: an interactive tenant submits short
+high-priority requests with an SLO deadline while batch tenants keep the
+shell saturated, and the preemptive policy evicts batch chunks to hit the
+SLO.
 
     PYTHONPATH=src python -m repro_torch.launch.serve            # on cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
+    PYTHONPATH=src python -m repro_torch.launch.serve --daemon [--contract]
 """
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -102,6 +109,129 @@ def serve(run: ServeRun, log=print) -> dict:
             "logits": logits}
 
 
+@dataclasses.dataclass
+class DaemonServeRun:
+    """Multi-tenant serving through the FOS daemon with SLO classes."""
+    n_interactive: int = 6          # high-priority single-chunk requests
+    n_batch: int = 2                # low-priority multi-chunk requests
+    batch_chunks: int = 4
+    priority_hi: int = 3
+    deadline_ms: float = 2000.0     # interactive SLO (wall clock, live)
+    preemptive: bool = True
+    contract: bool = False          # register a QoSContract for "live"
+    contract_rate_per_s: float = 50.0
+    trace_out: str = ""             # Chrome trace: waits for ROADMAP A14
+    seed: int = 0
+    device: str = "cuda"
+
+
+def serve_daemon(run: DaemonServeRun, log=print) -> dict:
+    """Drive the resource-elastic daemon with two SLO classes.
+
+    Batch tenants submit long mandelbrot requests at priority 0; an
+    interactive tenant submits short sobel requests at `priority_hi` with a
+    deadline.  Under the preemptive policy the daemon cancels and requeues
+    batch chunks when the interactive class would otherwise queue behind
+    them.  With `contract=True` the live tenant additionally registers a
+    `QoSContract` (deadline = `deadline_ms`, degraded mode "sobel-lite"):
+    submits are screened by the admission controller, and the result dict
+    carries the live SLO attainment ledger.  The shell has one slot for
+    each CUDA device (one slot on the CPU with `device="cpu"`).  Returns
+    per-class latency stats and the daemon counters, plus the handles and
+    the inputs, for a caller that checks the outputs.
+    """
+    from repro_torch.core import AdmissionRejected, Daemon, ImplAlt, \
+        ModuleDescriptor, PolicyConfig, QoSContract, Shell, \
+        default_registry, uniform_shell
+    from repro_torch.core.daemon import _now_ms
+    from repro_torch.core.simulator import p95
+
+    if run.trace_out:
+        raise NotImplementedError(
+            "--trace-out needs the flight recorder (repro_torch.obs), "
+            "which waits for ROADMAP A14")
+    device = api.resolve_device(run.device)
+    if device.type == "cuda":
+        n_dev, devices = torch.cuda.device_count(), None
+    else:
+        n_dev, devices = 1, [device]
+    spec = uniform_shell(f"serve{n_dev}_s{n_dev}", (1, n_dev), n_dev)
+    reg = default_registry()
+    reg.register_shell(spec)
+    daemon = Daemon(Shell(spec, devices), reg,
+                    PolicyConfig(preemptive=run.preemptive))
+    contract = None
+    if run.contract:
+        # the degraded tier: same sobel kernel builder, declared at a
+        # cheaper estimate so the controller can swap to it when the
+        # full-rate contract stops being feasible
+        reg.register_module(ModuleDescriptor(
+            name="sobel-lite", entrypoint="repro_torch.core.zoo:build_sobel",
+            impls=(ImplAlt("x1", 1, 2.0),), kind="fn"))
+        contract = QoSContract("live", rate_per_s=run.contract_rate_per_s,
+                               deadline_ms=run.deadline_ms,
+                               degraded="sobel-lite")
+        daemon.register_contract(contract)
+    rng = np.random.default_rng(run.seed)
+    re_t = rng.uniform(-2, 1, (256, 256)).astype(np.float32)
+    im_t = rng.uniform(-1.5, 1.5, (256, 256)).astype(np.float32)
+    img = rng.random((1024, 1024)).astype(np.float32)
+    try:
+        t0 = time.perf_counter()
+        batch_handles = [
+            daemon.submit(f"batch{i}", "mandelbrot",
+                          [(re_t, im_t)] * run.batch_chunks, priority=0)
+            for i in range(run.n_batch)]
+        done_at: dict[int, float] = {}
+        live_handles = []
+        for _ in range(run.n_interactive):
+            h = daemon.submit("live", "sobel", [(img,)],
+                              priority=run.priority_hi,
+                              deadline_ms=run.deadline_ms)
+            # stamp completion when it happens; JobHandle.t_submit is on
+            # the scheduler's millisecond clock, so stamp in ms too
+            h.future.add_done_callback(
+                lambda _, rid=h.rid: done_at.setdefault(rid, _now_ms()))
+            live_handles.append(h)
+        rejected = 0
+        for h in live_handles + batch_handles:
+            try:
+                h.future.result(timeout=600)
+            except AdmissionRejected:
+                rejected += 1       # shed by the contract screen
+        live_lat = [done_at[h.rid] - h.t_submit for h in live_handles
+                    if h.future.exception() is None]
+        wall = time.perf_counter() - t0
+        live_p95 = p95(live_lat)
+        misses = sum(1 for l in live_lat if l > run.deadline_ms)
+        s = daemon.stats
+        slo = daemon.slo_stats if run.contract else {}
+        extra = ""
+        if run.contract and "live" in slo:
+            lv = slo["live"]
+            att = lv["attainment"]
+            extra = (f", contract: {lv['admitted']} admitted / "
+                     f"{lv['degraded']} degraded / "
+                     f"{lv['rejected']} rejected"
+                     + (f", attainment {att:.2f}"
+                        if att is not None else ""))
+        log(f"[serve/daemon] {n_dev} slot(s), "
+            f"{'preemptive' if run.preemptive else 'cooperative'}: "
+            f"live p95 {live_p95:.0f} ms "
+            f"({misses}/{len(live_lat)} SLO misses), "
+            f"wall {wall:.2f}s, chunks={s['chunks']} "
+            f"preemptions={s['preemptions']} "
+            f"reconfigs={s['reconfigurations']} reuses={s['reuses']}"
+            f"{extra}")
+        return {"live_p95_ms": live_p95, "slo_misses": misses,
+                "live_rejected": rejected, "wall_s": wall,
+                "stats": dict(s), "slo": slo, "metrics": daemon.metrics,
+                "handles": {"live": live_handles, "batch": batch_handles},
+                "inputs": {"mandelbrot": (re_t, im_t), "sobel": (img,)}}
+    finally:
+        daemon.shutdown()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-3b", choices=configs.ARCH_IDS)
@@ -109,7 +239,25 @@ def main():
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new-tokens", type=int, default=32)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--daemon", action="store_true",
+                    help="multi-tenant SLO serving through the FOS daemon")
+    ap.add_argument("--priority-hi", type=int, default=3)
+    ap.add_argument("--deadline-ms", type=float, default=2000.0)
+    ap.add_argument("--no-preempt", action="store_true")
+    ap.add_argument("--contract", action="store_true",
+                    help="register a QoSContract for the live tenant "
+                         "(admission screening + attainment ledger)")
+    ap.add_argument("--contract-rate", type=float, default=50.0,
+                    help="contract target arrival rate (jobs/s)")
     args = ap.parse_args()
+    if args.daemon:
+        serve_daemon(DaemonServeRun(priority_hi=args.priority_hi,
+                                    deadline_ms=args.deadline_ms,
+                                    preemptive=not args.no_preempt,
+                                    contract=args.contract,
+                                    contract_rate_per_s=args.contract_rate,
+                                    device=args.device))
+        return
     serve(ServeRun(arch=args.arch, batch=args.batch,
                    prompt_len=args.prompt_len,
                    max_new_tokens=args.max_new_tokens, device=args.device))

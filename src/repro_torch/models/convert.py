@@ -45,6 +45,16 @@ def _tensor(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def tree_from_numpy(tree, device):
+    """Nested dicts of numpy arrays as the same dicts of tensors on
+    `device` (a zoo module's weights; None stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    return _tensor(np.asarray(tree), device)
+
+
 def params_from_numpy(tree: dict, cfg: api.ModelConfig, device) -> dict:
     """The port's params on `device` from a nested dict of numpy arrays.
 

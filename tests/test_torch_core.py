@@ -1,0 +1,184 @@
+"""The port's FOS policy core against the reference's.
+
+Three holds on `repro_torch.core` and `repro_torch.analysis`:
+
+1. The copy check: every copied module's AST, docstrings removed, equals
+   the reference module's after the package rename `repro.` ->
+   `repro_torch.` (the daemon without its `import jax`).
+2. The seven golden simulator traces (`tests/fixtures/sim_golden_*.json`)
+   reproduce byte for byte through the port: `tests/golden_traces.py` is
+   loaded with the same rename into a fresh module.
+3. The reference's property suites run against the port by the same
+   load-and-rename: each suite's tests are collected here as
+   `test_<suite>__<test>`.  `Shell` is bound to a subclass on CPU devices
+   (the port's `Shell` raises without CUDA), also for a suite that imports
+   it inside a test.
+
+`test_network` and `test_simulator_core` import the flight recorder
+(`repro.obs`) or the golden builders directly; they wait for ROADMAP A14.
+"""
+from __future__ import annotations
+
+import ast
+import functools
+import json
+import sys
+import types
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch.core as port_core  # noqa: E402
+from repro_torch.core.shell import Shell  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+TESTS = ROOT / "tests"
+REF = ROOT / "src" / "repro"
+PORT = ROOT / "src" / "repro_torch"
+
+# copied modules, by path under the package root
+COPIED = ["core/allocator.py", "core/arrivals.py", "core/checkpoint.py",
+          "core/network.py", "core/registry.py", "core/slo.py",
+          "core/scheduler.py", "core/fabric.py", "core/simulator.py",
+          "core/daemon.py", "core/__init__.py", "analysis/sanitizer.py"]
+SUITES = ["test_core_allocator", "test_core_scheduler", "test_fabric",
+          "test_checkpoint", "test_preemption", "test_reservation",
+          "test_slo"]
+GOLDEN_MODULE = "_port_golden_traces"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread while this file runs: the daemon runs chunks in
+    up to 8 worker threads, and a team of intra-op threads for each of
+    them oversubscribes the CPU when test files run in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def renamed(source: str) -> str:
+    """The reference's source with its package renamed to the port's, and
+    the golden-trace module pointed at the port's copy of it."""
+    return (source.replace("repro.", "repro_torch.")
+            .replace("tests.golden_traces", GOLDEN_MODULE))
+
+
+class _Docstrings(ast.NodeTransformer):
+    """Drops every module, class and function docstring."""
+
+    def _strip(self, node):
+        self.generic_visit(node)
+        body = node.body
+        if body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+        return node
+
+    visit_Module = visit_ClassDef = _strip
+    visit_FunctionDef = visit_AsyncFunctionDef = _strip
+
+
+def _tree(source: str, drop_jax: bool = False) -> str:
+    tree = _Docstrings().visit(ast.parse(source))
+    if drop_jax:
+        tree.body = [n for n in tree.body
+                     if not (isinstance(n, ast.Import)
+                             and [a.name for a in n.names] == ["jax"])]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("path", COPIED)
+def test_copied_module_matches_reference(path):
+    """Comments and docstrings may be reworded; the code may not."""
+    ref = renamed((REF / path).read_text())
+    drop_jax = path == "core/daemon.py"
+    assert _tree((PORT / path).read_text()) == _tree(ref, drop_jax), \
+        f"src/repro_torch/{path} is no longer a copy of src/repro/{path}"
+
+
+def test_copy_check_sees_a_changed_line():
+    """The check fails on a code change and passes over a docstring."""
+    ref = renamed((REF / "core/allocator.py").read_text())
+    assert _tree(ref.replace('"""', '"""reworded ', 1)) == _tree(ref)
+    changed = ref.replace("return", "return  0 or", 1)
+    assert _tree(changed) != _tree(ref)
+
+
+def _load(name: str, path: Path) -> types.ModuleType:
+    """`path`'s source, renamed to the port, as a fresh module `name`."""
+    mod = types.ModuleType(name)
+    mod.__file__ = str(path)
+    sys.modules[name] = mod
+    exec(compile(renamed(path.read_text()), str(path), "exec"),
+         mod.__dict__)
+    return mod
+
+
+@functools.cache
+def golden() -> types.ModuleType:
+    return _load(GOLDEN_MODULE, TESTS / "golden_traces.py")
+
+
+def test_golden_module_runs_on_the_port():
+    mod = golden()
+    assert mod.simulate.__module__ == "repro_torch.core.simulator"
+    assert len(mod.TRACES) == 7
+
+
+@pytest.mark.parametrize("name", [
+    "ckpt_incapable_mix", "congested_two_switch", "contracts_full",
+    "hetero_steal_ckpt", "refine_hetero", "single_shell_seed",
+    "static_reserve_preempt"])
+def test_golden_trace_byte_identity(name):
+    """The port's simulator reproduces the committed fixture byte for byte:
+    the dump, written as the fixtures were written, equals the file."""
+    mod = golden()
+    got = mod.to_jsonable(mod.run_trace(name))
+    assert got == mod.load_fixture(name)
+    text = json.dumps(got, sort_keys=True, indent=1) + "\n"
+    assert text == (TESTS / "fixtures" / f"sim_golden_{name}.json"
+                    ).read_text()
+
+
+# -- the reference's property suites against the port ---------------------
+
+
+class CpuShell(Shell):
+    """The port's Shell on CPU devices, whatever devices the caller names
+    (a suite may pass jax's)."""
+
+    def __init__(self, spec, devices=None):
+        super().__init__(spec, [torch.device("cpu")]
+                         * (spec.grid[0] * spec.grid[1]))
+
+
+def _on_cpu(fn):
+    """Run a suite's test with `Shell` bound to CpuShell, also for an
+    import of it inside the test."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(port_core, "Shell", CpuShell)
+            return fn(*args, **kwargs)
+    return run
+
+
+def _collect(suite: str) -> None:
+    golden()
+    mod = _load(f"_port_{suite}", TESTS / f"{suite}.py")
+    if "Shell" in mod.__dict__:
+        mod.Shell = CpuShell
+    for name, obj in list(vars(mod).items()):
+        if name.startswith("test_") and callable(obj):
+            alias = f"test_{suite.removeprefix('test_')}__" \
+                    f"{name.removeprefix('test_')}"
+            globals()[alias] = _on_cpu(obj)
+
+
+for _suite in SUITES:
+    _collect(_suite)

@@ -10,7 +10,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.launch.serve import ServeRun, serve  # noqa: E402
+from repro_torch.core import Shell, uniform_shell  # noqa: E402
+from repro_torch.launch.serve import DaemonServeRun, ServeRun, serve, \
+    serve_daemon  # noqa: E402
 
 _IMPORT_ALL = """
 import pkgutil, importlib, sys
@@ -21,7 +23,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 """
 
 
@@ -31,9 +33,14 @@ def test_importing_the_port_loads_no_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(" ", 1)
+    n, rest = out.stdout.split(" ", 1)
+    bad, names = rest.split("] ", 1)
     assert int(n) >= 15, out.stdout      # every module was imported
-    assert bad.strip() == "[]", out.stdout
+    assert bad.strip() == "[", out.stdout
+    # the runtime is in the walk: policy core, device layer, sanitizer
+    for name in ("repro_torch.core.daemon", "repro_torch.core.zoo",
+                 "repro_torch.core.scheduler", "repro_torch.analysis.sanitizer"):
+        assert name in names.split(), names
 
 
 def test_serve_without_cuda_raises_instead_of_using_the_cpu():
@@ -41,3 +48,20 @@ def test_serve_without_cuda_raises_instead_of_using_the_cpu():
         pytest.skip("this machine has CUDA: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve(ServeRun(), log=lambda _: None)
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+
+
+def test_shell_without_cuda_raises_instead_of_binding_the_cpu():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="devices="):
+        Shell(uniform_shell("host1_s1", (1, 1), 1))
+
+
+def test_serve_daemon_without_cuda_raises_instead_of_using_the_cpu():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_daemon(DaemonServeRun(), log=lambda _: None)
