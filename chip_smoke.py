@@ -20,7 +20,10 @@ the final `{"ok": true, ...}` line from printing:
      peaky softmax) held against fp64 at twice fp32's own error; the
      full-width SSD shape also at the decay and step ranges of the model's
      init, at L=4096 (32 chunks of state passing), and continued from a
-     carried state;
+     carried state; decode at jamba's and qwen3-moe's groupings (32 q
+     heads on 8 and on 4 kv heads) at lengths 1040 and 1, flash at both
+     at S=1024, and the SSD at jamba's shape (128 heads, d_state 16) at
+     its init's decay and step ranges;
   3. serve llama3.2-3b at full width (B=4, 1024-token prompt, 32 new
      tokens, attn_impl="pallas"): the decode kernel must launch exactly
      28 layers x 31 steps = 868 times and no other kernel; a plain ("xla")
@@ -48,7 +51,7 @@ the final `{"ok": true, ...}` line from printing:
      enqueues; the flash kernel also in bf16), prefill and decode of both
      models, the llama3.2-3b forward on the flash kernel and with plain
      attention, and a torch.profiler breakdown;
-  8. the FOS runtime on the card (run before phase 7, after phase 6):
+  8. the FOS runtime on the card (run after phase 6; then 9, 10 and 7):
      (a) `serve_daemon` as the reference's (mandelbrot and sobel tenants on
      one slot and its stream): 14 chunks, every output equal to a direct
      `run_placement` on the card, the mandelbrot counts within 1% of
@@ -66,15 +69,38 @@ the final `{"ok": true, ...}` line from printing:
      module on the card (CUDA events on the slot's stream, median of 5),
      a torch.profiler breakdown of one lm-forward and one mandelbrot
      chunk, and the flash kernel alone at the module's attention shape
-     beside SDPA in bf16.
-Each of phases 3-6 and 8 sets every launch count to 0 just before it
-drives a path and reads the counts just after.  Then the `kernels` JSON
-line, the card line and the final line.
+     beside SDPA in bf16.  (a) writes the flight recorder's Chrome trace
+     (`trace_out`), which must parse and count the daemon's 14 chunks and
+     its preemptions; (b) runs with a recorder attached, whose counts must
+     be the daemon's;
+  9. jamba-v0.1-52b cut to one super-block (n_layers=8: 1 attention, 7
+     mamba, 4 MoE and 4 dense FFN sub-layers; 13.27 B params, 53.1 GB in
+     fp32) at full width, and
+ 10. qwen3-moe-30b-a3b cut to 16 of its 48 layers (10.59 B params) at full
+     width: served as phases 3 and 5 (the kernel path, MoE layers on the
+     gather route): exactly 31 decode and 7 SSD launches (jamba) / 496
+     decode launches (qwen3-moe) and no other kernel, every step's logits
+     within 1e-3 of a teacher-forced plain rerun (plain attention and SSD,
+     the one-hot MoE oracle), with the (token, expert) routes that differ
+     between the two runs printed per MoE sub-layer; the forward (1 flash
+     and 7 SSD / 16 flash launches, hidden state within 1e-3); one MoE
+     layer alone at T=4096 and T=4: the same experts and the same dropped
+     pairs on both routes, outputs within 2e-5, aux within 1e-6; and their
+     times (prefill, decode step, the MoE layer, a profile of one prefill
+     naming router, dispatch, experts and combine).  Each frees its params
+     before the next phase; every phase prints its wall time and
+     max_memory_allocated.
+Each of phases 3-6 and 8-10 sets every launch count to 0 just before it
+drives a path and reads the counts just after.  Phase 7 also times the
+decode kernel at jamba's and qwen3-moe's groupings, the flash kernel at
+their forward shapes and the SSD kernel at jamba's shape.  Then the
+`kernels` JSON line, the card line and the final line.
 
 It imports nothing of jax or of the reference package `repro`.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -82,6 +108,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -112,7 +139,13 @@ FLOP_PER_S = {torch.float32: TF32_FLOP_PER_S / 3,
 
 DEVICE = "cuda"
 LLAMA, MAMBA = "llama3.2-3b", "mamba2-780m"
+JAMBA, QWEN_MOE = "jamba-v0.1-52b", "qwen3-moe-30b-a3b"
 LAYERS = {LLAMA: 28, MAMBA: 48}
+# full width in fp32 does not fit one 80 GB card, so these two are cut in
+# depth, never in width: jamba to one super-block of 8 sub-layers (13.27 B
+# params, every sub-layer kind of its plan), qwen3-moe to 16 of its 48
+# layers (10.59 B params)
+DEPTH_CUT = {JAMBA: 8, QWEN_MOE: 16}
 BATCH, PROMPT, NEW = 4, 1024, 32
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -129,6 +162,10 @@ DECODE_CASES = [
     (4, 1056, 24, 8, 128, 1025), (4, 1056, 24, 8, 128, 1033),
     (4, 1056, 24, 8, 128, 1056), (1, 1056, 24, 8, 128, 5),
     (1, 1056, 24, 8, 128, 1040),
+    # jamba's grouping (32 q heads on 8 kv heads: g=4, the G=4 instance
+    # full) and qwen3-moe's (32 on 4: g=8, the G=8 instance), served
+    (4, 1056, 32, 8, 128, 1040), (4, 1056, 32, 8, 128, 1),
+    (4, 1056, 32, 4, 128, 1040), (4, 1056, 32, 4, 128, 1),
 ]
 # (b, sq, sk, hq, hkv, hd): the reference's FLASH_CASES, then the
 # llama3.2-3b forward shape; then, at its head counts, S=1 and S=7 (fewer
@@ -141,9 +178,13 @@ FLASH_CASES = [
     (4, 1, 1, 24, 8, 128), (4, 7, 7, 24, 8, 128), (4, 1000, 1000, 24, 8, 128),
     (4, 1040, 1040, 24, 8, 128), (4, 1024, 1024, 24, 8, 16),
     (1, 1024, 1024, 24, 8, 128),
+    # the jamba and qwen3-moe forwards' groupings
+    (4, 1024, 1024, 32, 8, 128), (4, 1024, 1024, 32, 4, 128),
 ]
-# (b, L, h, p, g, n, chunk): the full-width mamba2-780m prefill shape
+# (b, L, h, p, g, n, chunk): the full-width mamba2-780m prefill shape, and
+# jamba's (128 heads, d_state 16)
 SSD_FULL = (4, 1024, 48, 64, 1, 128, 128)
+SSD_JAMBA = (4, 1024, 128, 64, 1, 16, 128)
 # the reference's SSD_CASES, the reduced mamba2-780m shape, then the
 # full-width prefill shape, a ragged L=1000 and L=4096 (32 chunks)
 SSD_CASES = [
@@ -152,13 +193,18 @@ SSD_CASES = [
     (2, 20, 8, 16, 1, 16, 16),
     SSD_FULL, (4, 1000, 48, 64, 1, 128, 128), (4, 4096, 48, 64, 1, 128, 128),
 ]
-# the kernel instantiations the fp32 main paths run, as ptxas names them
-# (mangled): decode at hd=128, g<=4; SSD at P=64, N=128 (its C.B^T kernel
-# at N=128); flash at hd=128
+# the kernel instantiations the main paths run, as ptxas names them
+# (mangled): decode at hd=128, g<=4 (llama, jamba) and g<=8 (qwen3-moe, fp32
+# and bf16); SSD at P=64, N=128 (mamba2-780m) and N=16 (jamba), with their
+# C.B^T kernels; flash at hd=128
 FLASH_MAIN = "flash_kernelIfLi128E"
 MAIN_PATH_INSTANCES = (
-    "decode_kernelIfLi128ELi4E", "ssd_chunk_state_kernelIfLi64ELi128E",
+    "decode_kernelIfLi128ELi4E", "decode_kernelIfLi128ELi8E",
+    "decode_kernelI13__nv_bfloat16Li128ELi8E",
+    "ssd_chunk_state_kernelIfLi64ELi128E",
     "ssd_chunk_scan_kernelIfLi64ELi128E", "ssd_cb_kernelIfLi128E",
+    "ssd_chunk_state_kernelIfLi64ELi16E",
+    "ssd_chunk_scan_kernelIfLi64ELi16E", "ssd_cb_kernelIfLi16E",
     "ssd_state_pass_kernel", FLASH_MAIN)
 # y and final state, as the reference's test_ssd_kernel_matches_ref
 SSD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}
@@ -191,16 +237,27 @@ class Smoke:
             self.failures.append(name)
 
     def phase(self, name: str, fn) -> None:
+        """Run one phase; print its wall time, the most device memory it
+        held, and what is still allocated once it has returned (its
+        tensors freed)."""
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         try:
             fn()
         except Exception:  # a failed phase is reported, the rest still run
             traceback.print_exc()
             self.check(f"{name}: raised", False)
         torch.cuda.synchronize()
+        gc.collect()
         torch.cuda.empty_cache()
-        print(f"   {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        self.results.setdefault("phases", {})[name] = {
+            "wall_s": wall, "max_memory_allocated_gb": peak}
+        print(f"   {name}: {wall:.1f} s, max_memory_allocated "
+              f"{peak:.2f} GB, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              f"still allocated", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -239,9 +296,11 @@ def phase_setup(smoke: Smoke) -> None:
                 print(f"   main path: {k['registers']} registers, "
                       f"{k['spill']} bytes spilled: {k['name']}")
     smoke.results["ptxas_main_path"] = main_path
+    missing = [m for m in MAIN_PATH_INSTANCES
+               if not any(m in k["name"] for k in main_path)]
     smoke.check("ptxas: main-path instantiations do not spill",
-                bool(main_path) and not any(k["spill"] for k in main_path),
-                f"{len(main_path)} kernels")
+                not missing and not any(k["spill"] for k in main_path),
+                f"{len(main_path)} kernels, not found: {missing or 'none'}")
     # the flash kernel's products run on the tensor cores: HMMA in its SASS
     for inst in (FLASH_MAIN, "flash_kernelI13__nv_bfloat16Li128E"):
         hmma = _hmma_count(libs["flash_attention"], inst)
@@ -386,16 +445,17 @@ def phase_kernels(smoke: Smoke) -> None:
             torch.cuda.synchronize()
             _check_ssd(smoke, f"ssd_scan b={b} L={l} h={h} p={p} g={g} n={n} "
                        f"chunk={chunk} {dtype}", got, want, dtype)
-    # the full-width shape at the model's decay and step ranges, where the
-    # state is carried across whole chunks
-    b, l, h, p, g, n, chunk = SSD_FULL
-    for dtype in (torch.float32, torch.bfloat16):
-        args = _ssd_model_inputs(gen, b, l, h, p, g, n, dtype)
-        got = ssd.ssd(*args, chunk=chunk, impl="pallas")
-        want = ssd.ssd(*args, chunk=chunk, impl="xla")
-        torch.cuda.synchronize()
-        _check_ssd(smoke, f"ssd_scan b={b} L={l} h={h} p={p} g={g} n={n} "
-                   f"chunk={chunk} model ranges {dtype}", got, want, dtype)
+    # the full-width shapes (mamba2-780m's, jamba's) at the model's decay
+    # and step ranges, where the state is carried across whole chunks
+    for b, l, h, p, g, n, chunk in (SSD_FULL, SSD_JAMBA):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _ssd_model_inputs(gen, b, l, h, p, g, n, dtype)
+            got = ssd.ssd(*args, chunk=chunk, impl="pallas")
+            want = ssd.ssd(*args, chunk=chunk, impl="xla")
+            torch.cuda.synchronize()
+            _check_ssd(smoke, f"ssd_scan b={b} L={l} h={h} p={p} g={g} "
+                       f"n={n} chunk={chunk} model ranges {dtype}", got,
+                       want, dtype)
     # full-width continuation: 512 steps, then 512 more from the carried
     # state, against one 1024-step scan (tolerance as the reference's)
     b, l, h, p, g, n, chunk = SSD_FULL
@@ -441,13 +501,42 @@ def _check_launches(smoke, what, got, want) -> None:
 def _full_cfg(arch, impl):
     """Full-width config in fp32 (weights, activations, cache), as the
     serving path (`launch/serve.py`) runs it, with both kernel knobs set
-    to `impl`."""
+    to `impl` and the MoE route following them as serving sets it
+    ("pallas": the gather route "ep"; "xla": the one-hot oracle "dense");
+    DEPTH_CUT's models cut in depth."""
     import dataclasses
     from repro_torch import configs
-    return dataclasses.replace(configs.get(arch), param_dtype=torch.float32,
-                               compute_dtype=torch.float32,
-                               kv_dtype=torch.float32, attn_impl=impl,
-                               ssd_impl=impl)
+    cfg = dataclasses.replace(configs.get(arch), param_dtype=torch.float32,
+                              compute_dtype=torch.float32,
+                              kv_dtype=torch.float32, attn_impl=impl,
+                              ssd_impl=impl)
+    if arch in DEPTH_CUT:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUT[arch])
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl="ep" if impl == "pallas" else "dense"))
+    return cfg
+
+
+@contextlib.contextmanager
+def _depth_cut():
+    """`configs.get` (which `serve` reads its config from) hands out
+    DEPTH_CUT's full configs with their depth cut and their widths
+    unchanged."""
+    import dataclasses
+    from repro_torch import configs
+    real = configs.get
+
+    def get(arch_id, reduced=False):
+        cfg = real(arch_id, reduced)
+        if reduced or arch_id not in DEPTH_CUT:
+            return cfg
+        return dataclasses.replace(cfg, n_layers=DEPTH_CUT[arch_id])
+    configs.get = get
+    try:
+        yield
+    finally:
+        configs.get = real
 
 
 def _params(cfg, seed=0):
@@ -458,7 +547,6 @@ def _params(cfg, seed=0):
 
 def phase_serve(smoke: Smoke, arch: str) -> None:
     from repro_torch.launch.serve import ServeRun, serve
-    from repro_torch.models import stack
     layers = LAYERS[arch]
     run = ServeRun(arch=arch, reduced=False, batch=BATCH, prompt_len=PROMPT,
                    max_new_tokens=NEW, device=DEVICE, attn_impl="pallas")
@@ -483,17 +571,7 @@ def phase_serve(smoke: Smoke, arch: str) -> None:
 
     # the plain path, same weights and prompt, fed the served tokens
     params = _params(cfg, run.seed)
-    prompt = out["prompt"]
-    toks = tokens.to(prompt.device, torch.int32)
-    with torch.inference_mode():
-        cache, plain = stack.build_prefill_fn(cfg, PROMPT + NEW)(
-            params, {"tokens": prompt})
-        plain_logits = [plain]
-        decode = stack.build_decode_fn(cfg)
-        for i in range(NEW - 1):
-            cache, _, lg = decode(params, cache, toks[:, i:i + 1], PROMPT + i)
-            plain_logits.append(lg)
-    plain = torch.stack(plain_logits, dim=1)
+    plain = _teacher_forced(cfg, params, out["prompt"], tokens)
     err = float((logits - plain).abs().max())
     ok = bool(torch.allclose(logits, plain, atol=1e-3, rtol=1e-3))
     smoke.results.setdefault("serve", {})[arch] = {
@@ -503,6 +581,22 @@ def phase_serve(smoke: Smoke, arch: str) -> None:
         "launches": launches, "max_abs_logit_err_vs_plain": err}
     smoke.check(f"serve {arch}: logits vs plain path (atol=rtol=1e-3)", ok,
                 f"max_abs_err={err:.3g}")
+
+
+def _teacher_forced(cfg, params, prompt, tokens):
+    """The logits of prefill and of each decode step on `cfg`'s path, fed
+    the served `tokens` [B, NEW]: the plain rerun of a served run."""
+    from repro_torch.models import stack
+    toks = tokens.to(prompt.device, torch.int32)
+    with torch.inference_mode():
+        cache, plain = stack.build_prefill_fn(cfg, PROMPT + NEW)(
+            params, {"tokens": prompt})
+        plain_logits = [plain]
+        decode = stack.build_decode_fn(cfg)
+        for i in range(NEW - 1):
+            cache, _, lg = decode(params, cache, toks[:, i:i + 1], PROMPT + i)
+            plain_logits.append(lg)
+    return torch.stack(plain_logits, dim=1)
 
 
 def phase_forward(smoke: Smoke, arch: str) -> None:
@@ -532,6 +626,378 @@ def phase_forward(smoke: Smoke, arch: str) -> None:
                 bool(torch.isfinite(h).all())
                 and bool(torch.allclose(h, h_plain, atol=1e-3, rtol=1e-3)),
                 f"max_abs_err={err:.3g}")
+
+
+# A top-k choice whose k-th and (k+1)-th probabilities lie closer than this
+# is a tie at fp32 noise: kernel and plain attention differ by ~1e-5 in the
+# hidden state, ~1e-7 in a router probability, and a routing flip there
+# moves that token's hidden state by ~1e-2, far past the 1e-3 checks.
+TIE_GAP = 1e-6
+
+
+class _Routes:
+    """Records each MoE router call's top-k experts, the top k+1
+    probabilities (for the gap at the top-k boundary), and which tokens'
+    choices were pinned, while a run is inside `record(name)`.  It wraps
+    `moe.router_probs`, which both MoE routes call.
+
+    A plain rerun records with `follow` set to the run it is held to, and
+    is teacher-forced on that run's routes where they tie, as it is on the
+    served tokens: where its own top-k set differs from the followed run's
+    at call j and its own gap is below TIE_GAP, it takes the followed
+    run's experts (and their probabilities, renormalised).  A difference
+    at a larger gap is left alone, and `differ` counts it."""
+
+    def __init__(self):
+        self.calls: dict[str, list] = {}
+
+    @contextlib.contextmanager
+    def record(self, name, follow=None):
+        from repro_torch.models import moe
+        real, log = moe.router_probs, self.calls.setdefault(name, [])
+
+        def router_probs(params, x, spec):
+            top_p, top_i, aux = real(params, x, spec)
+            k = spec.top_k
+            probs = torch.softmax(x.float() @ params["w_router"].float(), -1)
+            top = torch.sort(probs, dim=-1, descending=True,
+                             stable=True).values[:, :k + 1]
+            pinned = torch.zeros(top_i.shape[0], dtype=torch.bool,
+                                 device=top_i.device)
+            own = top_i.clone()
+            if follow is not None:
+                ref = self.calls[follow][len(log)][0]
+                same = (top_i[:, :, None] == ref[:, None, :]).any(-1).all(-1)
+                pinned = ~same & (top[:, k - 1] - top[:, k] < TIE_GAP)
+                top_i = torch.where(pinned[:, None], ref, top_i)
+                p = probs.gather(1, top_i)
+                top_p = torch.where(pinned[:, None],
+                                    p / p.sum(-1, keepdim=True), top_p)
+            log.append((own, top, pinned))
+            return top_p, top_i, aux
+        moe.router_probs = router_probs
+        try:
+            yield
+        finally:
+            moe.router_probs = real
+
+    def differ(self, a: str, b: str, n_moe: int) -> dict:
+        """(token, expert) routes run `a` chose and run `b`'s own choice did
+        not, per MoE sub-layer (call j is sub-layer j % n_moe); of them,
+        those `b` pinned to `a`'s at a tie and those it did not; and the
+        first difference with both runs' gaps between their k-th and
+        (k+1)-th probability."""
+        ca, cb = self.calls[a], self.calls[b]
+        out = {"calls": [len(ca), len(cb)], "per_sublayer": [0] * n_moe,
+               "pinned_per_sublayer": [0] * n_moe, "not_ties": 0,
+               "routes_per_sublayer": [0] * n_moe, "first": None}
+        for j, ((ia, pa, _), (ib, pb, pinned)) in enumerate(zip(ca, cb)):
+            differs = ~(ia[:, :, None] == ib[:, None, :]).any(-1)  # [T, K]
+            n = int(differs.sum())
+            n_pinned = int(differs[pinned].sum())
+            out["per_sublayer"][j % n_moe] += n
+            out["pinned_per_sublayer"][j % n_moe] += n_pinned
+            out["not_ties"] += n - n_pinned
+            out["routes_per_sublayer"][j % n_moe] += ia.numel()
+            if n and out["first"] is None:
+                t = int(differs.any(-1).nonzero()[0])
+                k = ia.shape[1]
+                out["first"] = {
+                    "call": j, "sublayer": j % n_moe, "step": j // n_moe,
+                    "token": t, "experts_" + a: ia[t].tolist(),
+                    "experts_" + b: ib[t].tolist(),
+                    "gap_" + a: float(pa[t, k - 1] - pa[t, k]),
+                    "gap_" + b: float(pb[t, k - 1] - pb[t, k])}
+        return out
+
+
+def _check_routes(smoke, what, routes, a, b, n_moe, n_calls) -> dict:
+    """Print the (token, expert) routes that differ between run `a` and
+    the plain run `b` per MoE sub-layer, and the first of them with its
+    gaps; check that both ran `n_calls` router calls and that every
+    difference was a tie `b` was pinned at."""
+    diff = routes.differ(a, b, n_moe)
+    print(f"   {what}: (token, expert) routes of the kernel path the plain "
+          f"path chose otherwise, per MoE sub-layer: {diff['per_sublayer']} "
+          f"of {diff['routes_per_sublayer']}; pinned at ties (gap < "
+          f"{TIE_GAP:g}): {diff['pinned_per_sublayer']}; first: "
+          f"{diff['first']}")
+    smoke.check(f"{what}: the plain rerun routed the same calls",
+                diff["calls"][0] == diff["calls"][1] == n_calls,
+                f"{diff['calls']}")
+    smoke.check(f"{what}: routes differ only at ties (gap < {TIE_GAP:g})",
+                diff["not_ties"] == 0,
+                f"{diff['not_ties']} routes differ at a larger gap")
+    return diff
+
+
+def _sublayer_counts(cfg) -> dict:
+    n_groups, plan = cfg.layer_plan()
+    return {kind: n_groups * sum(1 for item in plan if kind in item)
+            for kind in ("attn", "mamba", "moe")}
+
+
+def phase_moe_model(smoke: Smoke, arch: str) -> None:
+    """Phases 9 and 10: a DEPTH_CUT model at full width in fp32.  Serve it
+    (B=4, a 1024-token prompt, 32 new tokens, greedy, the kernel path with
+    the gather MoE route) and hold every step's logits to a teacher-forced
+    plain rerun (plain attention and SSD, the one-hot MoE oracle) on the
+    same weights; run its forward on both paths; hold one MoE layer's
+    gather route to the oracle at the prefill's and a decode step's token
+    counts; time prefill, decode and the MoE layer, and profile a
+    prefill.  The params are freed before it returns."""
+    from repro_torch.launch.serve import ServeRun, serve
+    from repro_torch.models import api, stack
+    res = smoke.results.setdefault("moe_models", {}).setdefault(arch, {})
+    cfg_k, cfg_p = _full_cfg(arch, "pallas"), _full_cfg(arch, "xla")
+    n = _sublayer_counts(cfg_k)
+    n_moe = n["moe"]
+    res.update(n_layers=cfg_k.n_layers, sublayers=n,
+               params=api.param_count(cfg_k))
+    print(f"   {arch} cut to {cfg_k.n_layers} layers: {n}, "
+          f"{res['params'] / 1e9:.3f} B params "
+          f"({4 * res['params'] / 1e9:.2f} GB in fp32)")
+    routes = _Routes()
+
+    # serve, as phases 3 and 5 do
+    run = ServeRun(arch=arch, reduced=False, batch=BATCH, prompt_len=PROMPT,
+                   max_new_tokens=NEW, device=DEVICE, attn_impl="pallas")
+    with _depth_cut(), routes.record("served"):
+        _reset_launches()
+        out = serve(run)
+        launches = _read_launches()
+    smoke.results.setdefault("launches", {})[f"serve {arch}"] = launches
+    _check_launches(smoke, f"serve {arch}", launches, {
+        "decode_attention": n["attn"] * (NEW - 1), "flash_attention": 0,
+        "ssd_scan": n["mamba"]})
+    tokens, logits = torch.from_numpy(out["tokens"]), out["logits"]
+    smoke.check(f"serve {arch}: tokens shape and range",
+                tuple(tokens.shape) == (BATCH, NEW)
+                and bool(((tokens >= 0) & (tokens < cfg_k.vocab)).all()))
+    smoke.check(f"serve {arch}: logits finite",
+                bool(torch.isfinite(logits).all()))
+    params = _params(cfg_p, run.seed)
+    with routes.record("plain", follow="served"):
+        plain = _teacher_forced(cfg_p, params, out["prompt"], tokens)
+    err = float((logits - plain).abs().max())
+    ok = bool(torch.allclose(logits, plain, atol=1e-3, rtol=1e-3))
+    diff = _check_routes(smoke, f"serve {arch}", routes, "served", "plain",
+                         n_moe, n_moe * NEW)
+    smoke.check(f"serve {arch}: logits vs plain path (atol=rtol=1e-3)", ok,
+                f"max_abs_err={err:.3g}" + ("" if ok else
+                                            f"; first flip {diff['first']}"))
+    res["serve"] = {"prefill_s": out["prefill_s"],
+                    "decode_tok_per_s": out["decode_tok_per_s"],
+                    "launches": launches, "max_abs_logit_err_vs_plain": err,
+                    "route_diff": diff}
+    del out, logits, plain
+
+    # the cache-free forward on both paths
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    fwd = {"tokens": torch.randint(0, cfg_p.vocab, (BATCH, PROMPT),
+                                   generator=gen, device=DEVICE,
+                                   dtype=torch.int32)}
+    with torch.inference_mode():
+        with routes.record("forward"):
+            _reset_launches()
+            h, aux = stack.forward(params, cfg_k, fwd)
+            launches = _read_launches()
+        with routes.record("forward plain", follow="forward"):
+            h_plain, aux_plain = stack.forward(params, cfg_p, fwd)
+    smoke.results["launches"][f"forward {arch}"] = launches
+    _check_launches(smoke, f"forward {arch}", launches, {
+        "decode_attention": 0, "flash_attention": n["attn"],
+        "ssd_scan": n["mamba"]})
+    err = float((h - h_plain).abs().max())
+    fdiff = _check_routes(smoke, f"forward {arch}", routes, "forward",
+                          "forward plain", n_moe, n_moe)
+    smoke.check(f"forward {arch}: hidden state vs plain path "
+                f"(atol=rtol=1e-3)",
+                bool(torch.isfinite(h).all())
+                and bool(torch.allclose(h, h_plain, atol=1e-3, rtol=1e-3)),
+                f"max_abs_err={err:.3g}, aux {float(aux):.6g} vs "
+                f"{float(aux_plain):.6g}")
+    res["forward"] = {"launches": launches,
+                      "max_abs_hidden_err_vs_plain": err,
+                      "aux": float(aux), "aux_plain": float(aux_plain),
+                      "route_diff": fdiff}
+    del h, h_plain, routes
+
+    flush = torch.empty(64 * 2 ** 20, device=DEVICE)
+    res["moe_layer"] = _moe_layer_alone(smoke, arch, cfg_k, params, flush)
+    res["times"] = _moe_model_times(cfg_k, params, flush)
+    smoke.results.setdefault("times", {})[arch] = res["times"]
+    del params, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_layer_alone(smoke, arch, cfg, params, flush) -> dict:
+    """The first MoE sub-layer's weights on a normalised input of T = 4096
+    tokens (the prefill) and T = 4 (a decode step): the gather route and
+    the one-hot oracle choose the same experts, drop the same (token, k)
+    pairs, and agree within 2e-5 (aux within 1e-6); with a zero router
+    every token takes experts 0 .. k-1.  Times the gather route and the
+    oracle at T = 4096."""
+    import dataclasses
+    from repro_torch.models import layers, moe, stack
+    i = next(i for i, (_, ffn) in enumerate(cfg.layer_plan()[1])
+             if ffn == "moe")
+    sub = params["blocks"][f"sub{i}"]
+    p = {k: v[0] for k, v in sub["moe"].items()}
+    spec = stack.moe_spec(cfg)
+    e, k = spec.n_experts, spec.top_k
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    out = {}
+    with torch.inference_mode():
+        for t in (BATCH * PROMPT, BATCH):
+            x = layers.rms_norm(
+                torch.randn((1, t, cfg.d_model), generator=gen,
+                            device=DEVICE), sub["ln2_w"][0])
+            xt = x[0]
+            top_p, top_i, _ = moe.router_probs(p, xt, spec)
+            top_p2, top_i2, _ = moe.router_probs(p, xt, spec)
+            cap = moe._capacity(t, spec)
+            disp, _ = moe._dense_dispatch(top_p, top_i, cap, spec, x.dtype)
+            kept_dense = disp.sum(-1) > 0                      # [T, E]
+            _, src, w = moe._sorted_dispatch(xt, top_p2, top_i2, cap, spec)
+            kept_ep = torch.zeros_like(kept_dense)
+            ids = torch.arange(e, device=DEVICE)[:, None].expand_as(src)
+            kept_ep[src[w > 0], ids[w > 0]] = True
+            dropped = t * k - int(kept_ep.sum())
+            del disp
+            y_ep, aux_ep = moe.moe_ep(p, x, spec)
+            y_d, aux_d = moe.moe_dense(p, x, spec)
+            err, ok = err_within(y_ep, y_d, 2e-5)
+            aux_err = abs(float(aux_ep) - float(aux_d))
+            smoke.check(f"{arch} MoE layer T={t}: gather route vs one-hot "
+                        f"oracle (same experts, same drops, 2e-5, aux 1e-6)",
+                        torch.equal(top_i, top_i2)
+                        and torch.equal(kept_dense, kept_ep) and ok
+                        and aux_err <= 1e-6,
+                        f"capacity {cap}, {dropped} of {t * k} (token, k) "
+                        f"pairs dropped, max_abs_err={err:.3g}, aux "
+                        f"err={aux_err:.3g}")
+            out[f"T={t}"] = {"capacity": cap, "pairs": t * k,
+                             "dropped": dropped, "max_abs_err": err,
+                             "aux_err": aux_err}
+            if t == BATCH * PROMPT:
+                out["ms_gather"] = time_ms(lambda: moe.moe_ep(p, x, spec),
+                                           flush, reps=10, warmup=2)
+                out["ms_dense_oracle"] = time_ms(
+                    lambda: moe.moe_dense(p, x, spec), flush, reps=5,
+                    warmup=1)
+                out["profile_gather"] = _moe_stage_profile(
+                    lambda: moe.moe_ep(p, x, spec))
+            del y_ep, y_d
+        zero = dict(p, w_router=torch.zeros_like(p["w_router"]))
+        _, ties, _ = moe.router_probs(zero, xt, spec)
+        smoke.check(f"{arch} MoE router: equal probabilities take experts "
+                    f"0 .. k-1 on the card",
+                    bool((ties == torch.arange(k, device=DEVICE)).all()))
+    print(f"   {arch} MoE layer: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def _moe_stage_ranges():
+    """torch.profiler ranges around the MoE layer's stages: router
+    (`router_probs`), dispatch (`_sorted_dispatch`: the sort and the
+    gather), experts (`_expert_ffn`: three bmm) and the whole layer
+    (`moe_ep`; what the three leave is the weighting and `index_add_`)."""
+    from repro_torch.models import moe
+    names = {"router_probs": "moe.router",
+             "_sorted_dispatch": "moe.dispatch",
+             "_expert_ffn": "moe.experts", "moe_ep": "moe.layer"}
+    real = {fn: getattr(moe, fn) for fn in names}
+
+    def ranged(fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(names[fn]):
+                return real[fn](*args, **kwargs)
+        return run
+    for fn in names:
+        setattr(moe, fn, ranged(fn))
+    try:
+        yield
+    finally:
+        for fn, f in real.items():
+            setattr(moe, fn, f)
+
+
+def _moe_stage_profile(fn) -> dict:
+    """fn() under torch.profiler with `_moe_stage_ranges`: the device time
+    of each stage's kernels (summed over the MoE layers fn runs), of all
+    kernels, and each stage's share of the latter."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with _moe_stage_ranges(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    stage = {}
+    for e in prof.events():
+        if e.name.startswith("moe.") and e.device_type.name == "CPU":
+            stage[e.name] = stage.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA"
+               and not e.key.startswith("moe.")) / 1e3
+    if not busy:
+        return {"device_busy_ms": "not measured"}
+    layer = stage.pop("moe.layer", 0.0)
+    if layer:
+        stage["moe.combine (weights, index_add_)"] = layer - sum(
+            stage.get(k, 0.0) for k in ("moe.router", "moe.dispatch",
+                                        "moe.experts"))
+    return {"device_busy_ms": busy, "moe_layers_ms": layer,
+            "stage_ms": stage,
+            "stage_share": {k: v / busy for k, v in stage.items()}}
+
+
+def _moe_model_times(cfg, params, flush) -> dict:
+    """Prefill ms (CUDA events, median of 5), the median decode step ms
+    over a served run's 31 steps, and torch.profiler breakdowns of three
+    decode steps and of one prefill, the latter also with the MoE layers'
+    stages named."""
+    from repro_torch.models import io, stack
+    with torch.inference_mode():
+        batch = io.make_batch(cfg, io.smoke_cell("prefill", BATCH, PROMPT),
+                              torch.Generator(device=DEVICE).manual_seed(1))
+        prefill = stack.build_prefill_fn(cfg, PROMPT + NEW)
+        times = {"prefill_ms": time_ms(lambda: prefill(params, batch), flush,
+                                       reps=5, warmup=1)}
+        cache, logits = prefill(params, batch)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        decode = stack.build_decode_fn(cfg)
+        steps = []
+        for i in range(NEW - 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            cache, nxt, _ = decode(params, cache, tok, PROMPT + i)
+            end.record()
+            end.synchronize()
+            steps.append(start.elapsed_time(end))
+            tok = nxt[:, None]
+        step_ms = statistics.median(steps[1:])
+        times.update({"decode_step_ms": step_ms,
+                      "decode_tok_per_s": BATCH * 1e3 / step_ms,
+                      "decode_steps_timed": len(steps) - 1})
+
+        def three_steps():
+            c, t = cache, tok
+            for i in range(3):
+                c, n, _ = decode(params, c, t, PROMPT + NEW - 4 + i)
+                t = n[:, None]
+        times["profile_decode_3_steps"] = _profile(three_steps)
+        del cache
+        times["profile_prefill"] = _profile(lambda: prefill(params, batch))
+        times["profile_prefill_moe_stages"] = _moe_stage_profile(
+            lambda: prefill(params, batch))
+    print(f"   times: prefill {times['prefill_ms']:.1f} ms, decode step "
+          f"{step_ms:.2f} ms, MoE stages of one prefill "
+          f"{times['profile_prefill_moe_stages']}")
+    return times
 
 
 def _resolved(handles) -> list:
@@ -569,14 +1035,29 @@ def phase_daemon(smoke: Smoke) -> None:
         default_registry, uniform_shell
     from repro_torch.core.slo import AdmissionRejected
     from repro_torch.launch.serve import DaemonServeRun, serve_daemon
+    from repro_torch.obs import FlightRecorder
     res = smoke.results.setdefault("daemon", {})
     slot = Shell(uniform_shell("direct1_s1", (1, 1), 1)).slots[0]
 
-    # (a) serve_daemon as the reference runs it, on one slot of the card
-    out = serve_daemon(DaemonServeRun())
+    # (a) serve_daemon as the reference runs it, on one slot of the card,
+    # with the flight recorder writing a Chrome trace
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = Path(tmp) / "serve_daemon_trace.json"
+        out = serve_daemon(DaemonServeRun(trace_out=str(trace_path)))
+        trace = json.loads(trace_path.read_text())
     s = out["stats"]
     smoke.check("daemon: serve_daemon chunks", s["chunks"] == 14,
                 f"{s['chunks']} (want 14)")
+    rec = out["metrics"]["obs"]["counters"]
+    smoke.check("daemon: --trace-out writes a Chrome trace whose chunk "
+                "counts are the daemon's",
+                bool(trace["traceEvents"])
+                and rec["chunks_completed"] == s["chunks"]
+                and rec["chunks_preempted"] == s["preemptions"],
+                f"{len(trace['traceEvents'])} trace events, completed "
+                f"{rec['chunks_completed']}, preempted "
+                f"{rec['chunks_preempted']} (stats: chunks {s['chunks']}, "
+                f"preemptions {s['preemptions']})")
     live = _resolved(out["handles"]["live"])
     batch = _resolved(out["handles"]["batch"])
     re_t, im_t = out["inputs"]["mandelbrot"]
@@ -596,7 +1077,8 @@ def phase_daemon(smoke: Smoke) -> None:
                 f"{differ} of {cpu.numel()} pixels differ")
     res["serve_daemon"] = {
         "live_p95_ms": out["live_p95_ms"], "slo_misses": out["slo_misses"],
-        "wall_s": out["wall_s"], "stats": s,
+        "wall_s": out["wall_s"], "stats": s, "trace_counters": rec,
+        "trace_events": len(trace["traceEvents"]),
         "sched_us_per_pass": s["sched_ns"] / max(1, s["sched_calls"]) / 1e3,
         "mandelbrot_pixels_differing_from_cpu": differ}
     print(f"   serve_daemon: live p95 {out['live_p95_ms']:.1f} ms, "
@@ -604,9 +1086,12 @@ def phase_daemon(smoke: Smoke) -> None:
           f"stats {s}, scheduling "
           f"{res['serve_daemon']['sched_us_per_pass']:.1f} us a pass")
 
-    # (b) the preemption recipe: saturate one slot, then a priority-5 job
+    # (b) the preemption recipe: saturate one slot, then a priority-5 job;
+    # a flight recorder attached
+    recorder = FlightRecorder(sample_every_ms=100.0)
     d = Daemon(Shell(uniform_shell("preempt1_s1", (1, 1), 1)),
-               default_registry(), PolicyConfig(preemptive=True))
+               default_registry(), PolicyConfig(preemptive=True),
+               obs=recorder)
     try:
         lo = d.submit("batch", "mandelbrot", [(re_t, im_t)] * 8, priority=0)
         deadline = time.monotonic() + 60
@@ -623,11 +1108,19 @@ def phase_daemon(smoke: Smoke) -> None:
         d.shutdown()
     smoke.check("daemon: preemption recipe preempts", st["preemptions"] >= 1,
                 f"{st['preemptions']} preemptions")
+    c = recorder.counts
+    smoke.check("daemon: the recorder counts the recipe's chunks and "
+                "preemptions", c["chunks_completed"] == st["chunks"]
+                and c["chunks_preempted"] == st["preemptions"],
+                f"completed {c['chunks_completed']}, preempted "
+                f"{c['chunks_preempted']}")
     smoke.check("daemon: every preempted job's chunk resolves once, right",
                 len(lo_outs) == 8 and st["chunks"] == 9
                 and all(torch.equal(o, mandel) for o in lo_outs)
                 and torch.equal(hi_out, edges), f"stats {st}")
-    res["preemption"] = st
+    res["preemption"] = dict(st, recorder={
+        k: c[k] for k in ("chunks_started", "chunks_completed",
+                          "chunks_preempted")})
 
     # (c) the contract run
     out = serve_daemon(DaemonServeRun(contract=True))
@@ -860,9 +1353,6 @@ def _launches(smoke, path, name):
 
 
 def phase_times(smoke: Smoke) -> None:
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.kernels.ssd_scan import ops as ssd
     flush = torch.empty(64 * 2 ** 20, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     f32 = torch.float32
@@ -871,95 +1361,129 @@ def phase_times(smoke: Smoke) -> None:
     scale = hd ** -0.5
     kernels = []
     with torch.inference_mode():
-        # decode: a mid-run step of the serving path
-        s_cache, length = PROMPT + NEW, PROMPT + NEW // 2
-        q = _randn(gen, (BATCH, hq, hd), f32)
-        k = _randn(gen, (BATCH, s_cache, hkv, hd), f32)
-        v = _randn(gen, (BATCH, s_cache, hkv, hd), f32)
-        kq, kk, kv = (q[:, :, None], k[:, :length].transpose(1, 2),
-                      v[:, :length].transpose(1, 2))
-        got = da.decode_attention(q, k, v, length, scale=scale)
-        want = da.decode_attention_plain(q, k, v, length, scale=scale)
-        nbytes = 4 * (2 * BATCH * length * hkv * hd + 2 * BATCH * hq * hd)
-        flops = 4 * BATCH * hq * length * hd
-        kernels.append(_kernel_entry(
-            "decode_attention",
-            "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-            "src/repro/kernels/decode_attention/decode_attention.py:63",
-            smoke, _launches(smoke, f"serve {LLAMA}", "decode_attention"),
-            got, want,
-            time_ms(lambda: da.decode_attention(q, k, v, length, scale=scale),
-                    flush),
-            time_ms(lambda: da.decode_attention_plain(q, k, v, length,
-                                                      scale=scale), flush),
-            time_ms(lambda: F.scaled_dot_product_attention(
-                kq, kk, kv, scale=scale, enable_gqa=True), flush),
-            [device_time(lambda: da.decode_attention(q, k, v, length,
-                                                     scale=scale),
-                         flush, "decode_kernel", clean_l2=clean)
-             for clean in (False, True)],
-            nbytes, flops,
-            {"b": BATCH, "hq": hq, "hkv": hkv, "hd": hd, "s_cache": s_cache,
-             "length": length, "dtype": "float32"}))
+        # decode: a mid-run step of the serving path; nested, the same at
+        # jamba's and qwen3-moe's groupings (g=4 on 8 kv heads, g=8 on 4)
+        kernels.append(_decode_entry(smoke, gen, flush, hq, hkv, hd, LLAMA))
+        for arch in (JAMBA, QWEN_MOE):
+            c = _full_cfg(arch, "pallas")
+            kernels[-1][arch] = _decode_entry(smoke, gen, flush, c.n_heads,
+                                              c.n_kv_heads, c.head_dim, arch)
         # flash: the full-width cache-free forward's attention, in fp32 (the
-        # main path) and in bf16 (nested in the fp32 entry)
-        del q, k, v, kq, kk, kv, got, want
+        # main path) and in bf16 (nested in the fp32 entry), and in fp32 at
+        # jamba's and qwen3-moe's groupings (nested)
         kernels.append(_flash_entry(smoke, gen, flush, hq, hkv, hd, scale,
                                     f32))
         kernels[-1]["bf16"] = _flash_entry(smoke, gen, flush, hq, hkv, hd,
                                            scale, torch.bfloat16)
-        # ssd_scan: one layer of the full-width mamba2-780m prefill, seeded
-        # from the (zero) cache state as the serving path seeds it
-        ms = _full_cfg(MAMBA, "pallas").mamba_spec
-        h, p, g, n, chunk = (ms.n_heads, ms.headdim, ms.n_groups,
-                             ms.d_state, ms.chunk)
-        args = _ssd_inputs(gen, BATCH, PROMPT, h, p, g, n, f32)
-        init = torch.zeros((BATCH, h, p, n), device=DEVICE)
-        got = ssd.ssd(*args, chunk=chunk, impl="pallas", initial_state=init)
-        want = ssd.ssd(*args, chunk=chunk, impl="xla", initial_state=init)
-        err_s, ok_s = err_within(got[1], want[1], SSD_TOL[f32][1])
-        smoke.check("ssd_scan: timed inputs vs plain (state)", ok_s,
-                    f"max_abs_err={err_s:.3g}")
-        # x, dt, B, C and the initial state read once, y and the state
-        # written once
-        nbytes = 4 * (2 * BATCH * PROMPT * h * p + BATCH * PROMPT * h
-                      + 2 * BATCH * PROMPT * g * n + h + 2 * BATCH * h * p * n)
-        # per chunk: C.B^T over the causal triangle once per (batch,
-        # group), the score.x product over the triangle, C.S and the state
-        # update per (batch, head)
-        tri = chunk * (chunk + 1) // 2
-        n_chunks = -(-PROMPT // chunk)
-        flops = n_chunks * BATCH * (2 * n * tri * g
-                                    + h * (2 * p * tri + 4 * chunk * n * p))
-        kernels.append(_kernel_entry(
-            "ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
-            "src/repro/kernels/ssd_scan/ssd_scan.py:69",
-            smoke, _launches(smoke, f"serve {MAMBA}", "ssd_scan"),
-            got[0], want[0],
-            time_ms(lambda: ssd.ssd(*args, chunk=chunk, impl="pallas",
-                                    initial_state=init), flush),
-            time_ms(lambda: ssd.ssd(*args, chunk=chunk, impl="xla",
-                                    initial_state=init), flush, reps=20),
-            None,
-            # all four phases' kernels (ssd_cb, ssd_chunk_state,
-            # ssd_state_pass, ssd_chunk_scan)
-            [device_time(lambda: ssd.ssd(*args, chunk=chunk, impl="pallas",
-                                         initial_state=init),
-                         flush, "ssd_", clean_l2=clean)
-             for clean in (False, True)],
-            nbytes, flops,
-            {"b": BATCH, "L": PROMPT, "h": h, "p": p, "g": g, "n": n,
-             "chunk": chunk, "dtype": "float32"},
-            library_note="none: no single PyTorch call computes an SSD scan"))
-        del args, init, got, want
+        for arch in (JAMBA, QWEN_MOE):
+            c = _full_cfg(arch, "pallas")
+            kernels[-1][arch] = _flash_entry(
+                smoke, gen, flush, c.n_heads, c.n_kv_heads, c.head_dim,
+                c.head_dim ** -0.5, f32, arch)
+        # ssd_scan: one layer of the full-width mamba2-780m prefill, and
+        # (nested) of jamba's
+        kernels.append(_ssd_entry(smoke, gen, flush, MAMBA))
+        kernels[-1][JAMBA] = _ssd_entry(smoke, gen, flush, JAMBA)
+        for entry in kernels:       # every main-path run that launched it
+            entry["launches_by_path"] = {
+                path: counts[entry["name"]] for path, counts in
+                smoke.results.get("launches", {}).items()
+                if counts.get(entry["name"])}
         smoke.results["kernels"] = kernels
     for arch in (LLAMA, MAMBA):
         _model_times(smoke, flush, arch)
 
 
-def _flash_entry(smoke, gen, flush, hq, hkv, hd, scale, dtype) -> dict:
-    """The flash kernel's `kernels`-line entry at the llama3.2-3b forward
-    shape in `dtype`."""
+def _decode_entry(smoke, gen, flush, hq, hkv, hd, arch) -> dict:
+    """The decode kernel's `kernels`-line entry at a mid-run step of
+    serving `arch` (cache 1056 rows, 1040 valid), fp32."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as da
+    f32, scale = torch.float32, hd ** -0.5
+    s_cache, length = PROMPT + NEW, PROMPT + NEW // 2
+    q = _randn(gen, (BATCH, hq, hd), f32)
+    k = _randn(gen, (BATCH, s_cache, hkv, hd), f32)
+    v = _randn(gen, (BATCH, s_cache, hkv, hd), f32)
+    kq, kk, kv = (q[:, :, None], k[:, :length].transpose(1, 2),
+                  v[:, :length].transpose(1, 2))
+    got = da.decode_attention(q, k, v, length, scale=scale)
+    want = da.decode_attention_plain(q, k, v, length, scale=scale)
+    nbytes = 4 * (2 * BATCH * length * hkv * hd + 2 * BATCH * hq * hd)
+    flops = 4 * BATCH * hq * length * hd
+    return _kernel_entry(
+        "decode_attention",
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:63",
+        smoke, _launches(smoke, f"serve {arch}", "decode_attention"),
+        got, want,
+        time_ms(lambda: da.decode_attention(q, k, v, length, scale=scale),
+                flush),
+        time_ms(lambda: da.decode_attention_plain(q, k, v, length,
+                                                  scale=scale), flush),
+        time_ms(lambda: F.scaled_dot_product_attention(
+            kq, kk, kv, scale=scale, enable_gqa=True), flush),
+        [device_time(lambda: da.decode_attention(q, k, v, length,
+                                                 scale=scale),
+                     flush, "decode_kernel", clean_l2=clean)
+         for clean in (False, True)],
+        nbytes, flops,
+        {"b": BATCH, "hq": hq, "hkv": hkv, "hd": hd, "s_cache": s_cache,
+         "length": length, "dtype": "float32"})
+
+
+def _ssd_entry(smoke, gen, flush, arch) -> dict:
+    """The SSD kernel's `kernels`-line entry at one layer of `arch`'s
+    full-width prefill, seeded from the (zero) cache state as the serving
+    path seeds it."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    f32 = torch.float32
+    ms = _full_cfg(arch, "pallas").mamba_spec
+    h, p, g, n, chunk = (ms.n_heads, ms.headdim, ms.n_groups, ms.d_state,
+                         ms.chunk)
+    args = _ssd_inputs(gen, BATCH, PROMPT, h, p, g, n, f32)
+    init = torch.zeros((BATCH, h, p, n), device=DEVICE)
+    got = ssd.ssd(*args, chunk=chunk, impl="pallas", initial_state=init)
+    want = ssd.ssd(*args, chunk=chunk, impl="xla", initial_state=init)
+    err_s, ok_s = err_within(got[1], want[1], SSD_TOL[f32][1])
+    smoke.check(f"ssd_scan: timed inputs vs plain (state) h={h} n={n}", ok_s,
+                f"max_abs_err={err_s:.3g}")
+    # x, dt, B, C and the initial state read once, y and the state written
+    # once
+    nbytes = 4 * (2 * BATCH * PROMPT * h * p + BATCH * PROMPT * h
+                  + 2 * BATCH * PROMPT * g * n + h + 2 * BATCH * h * p * n)
+    # per chunk: C.B^T over the causal triangle once per (batch, group),
+    # the score.x product over the triangle, C.S and the state update per
+    # (batch, head)
+    tri = chunk * (chunk + 1) // 2
+    n_chunks = -(-PROMPT // chunk)
+    flops = n_chunks * BATCH * (2 * n * tri * g
+                                + h * (2 * p * tri + 4 * chunk * n * p))
+    return _kernel_entry(
+        "ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/ssd_scan.py:69",
+        smoke, _launches(smoke, f"serve {arch}", "ssd_scan"),
+        got[0], want[0],
+        time_ms(lambda: ssd.ssd(*args, chunk=chunk, impl="pallas",
+                                initial_state=init), flush),
+        time_ms(lambda: ssd.ssd(*args, chunk=chunk, impl="xla",
+                                initial_state=init), flush, reps=20),
+        None,
+        # all four phases' kernels (ssd_cb, ssd_chunk_state,
+        # ssd_state_pass, ssd_chunk_scan)
+        [device_time(lambda: ssd.ssd(*args, chunk=chunk, impl="pallas",
+                                     initial_state=init),
+                     flush, "ssd_", clean_l2=clean)
+         for clean in (False, True)],
+        nbytes, flops,
+        {"b": BATCH, "L": PROMPT, "h": h, "p": p, "g": g, "n": n,
+         "chunk": chunk, "dtype": "float32"},
+        library_note="none: no single PyTorch call computes an SSD scan")
+
+
+def _flash_entry(smoke, gen, flush, hq, hkv, hd, scale, dtype,
+                 arch=LLAMA) -> dict:
+    """The flash kernel's `kernels`-line entry at the full-width forward
+    shape of `arch` (llama3.2-3b's by default) in `dtype`."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
     q = _randn(gen, (BATCH, PROMPT, hq, hd), dtype)
@@ -974,7 +1498,7 @@ def _flash_entry(smoke, gen, flush, hq, hkv, hd, scale, dtype) -> dict:
         "flash_attention",
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:79",
-        smoke, _launches(smoke, f"forward {LLAMA}", "flash_attention"),
+        smoke, _launches(smoke, f"forward {arch}", "flash_attention"),
         got, want,
         time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
                                            scale=scale), flush),
@@ -1125,10 +1649,14 @@ def main() -> int:
     smoke.phase(f"6 forward {MAMBA} at full width",
                 lambda: phase_forward(smoke, MAMBA))
     smoke.phase("8 FOS daemon on the card", lambda: phase_daemon(smoke))
+    smoke.phase(f"9 {JAMBA} cut to {DEPTH_CUT[JAMBA]} layers at full width",
+                lambda: phase_moe_model(smoke, JAMBA))
+    smoke.phase(f"10 {QWEN_MOE} cut to {DEPTH_CUT[QWEN_MOE]} layers at full "
+                f"width", lambda: phase_moe_model(smoke, QWEN_MOE))
     smoke.phase("7 times", lambda: phase_times(smoke))
     r = smoke.results
     for key in ("launches", "serve", "forward", "times", "profile",
-                "daemon"):
+                "daemon", "moe_models", "phases"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"total {time.perf_counter() - t0:.1f} s; "

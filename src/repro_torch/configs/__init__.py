@@ -1,5 +1,5 @@
-"""Architecture config registry (the dense and SSM families of the
-reference's ten).
+"""Architecture config registry (the dense, SSM, MoE and hybrid families
+of the reference's ten).
 
 Usage:
     from repro_torch import configs
@@ -29,15 +29,15 @@ _MODULES = {
     "qwen3-14b": "qwen3_14b",
     "llama3.2-3b": "llama3_2_3b",
     "mamba2-780m": "mamba2_780m",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 # arch id -> the ROADMAP item that ports its family
 _NOT_PORTED = {
     "whisper-large-v3": "A11 (encoder-decoder)",
     "phi-3-vision-4.2b": "A11 (VLM)",
-    "qwen3-moe-30b-a3b": "A10 (MoE)",
-    "phi3.5-moe-42b-a6.6b": "A10 (MoE)",
-    "jamba-v0.1-52b": "A10 (MoE, for the hybrid's MoE layers)",
 }
 
 

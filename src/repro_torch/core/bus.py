@@ -12,11 +12,12 @@ the slot.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
 
-from repro_torch.core.module import tree_map
+from repro_torch.core.module import TensorSpec, tree_map
 
 
 @dataclasses.dataclass
@@ -31,30 +32,62 @@ def _leaf_bytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
+def _flatten(tree) -> tuple[list, Callable]:
+    """(leaves, rebuild) of nested dicts, lists and tuples, walked as the
+    reference's pytree flatten walks them: dict entries in sorted-key
+    order, None a node without leaves.  `rebuild(leaves)` puts new leaves
+    back into the same structure."""
+    if tree is None:
+        return [], lambda leaves: None
+    if isinstance(tree, (dict, list, tuple)):
+        keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
+        parts = [_flatten(tree[k]) for k in keys]
+        sizes = [len(leaves) for leaves, _ in parts]
+
+        def rebuild(leaves):
+            kids, i = [], 0
+            for (_, build), n in zip(parts, sizes):
+                kids.append(build(leaves[i:i + n]))
+                i += n
+            if isinstance(tree, dict):
+                return dict(zip(keys, kids))
+            return type(tree)(kids)
+        return [leaf for leaves, _ in parts for leaf in leaves], rebuild
+    return [tree], lambda leaves: leaves[0]
+
+
+def _adapt_leaf(g, w: TensorSpec, rep: AdaptorReport) -> torch.Tensor:
+    g = torch.as_tensor(np.asarray(g) if not torch.is_tensor(g) else g)
+    if g.dtype != w.dtype:
+        g = g.to(w.dtype)
+        rep.casts += 1
+        rep.identity = False
+        rep.bytes_moved += _leaf_bytes(g)
+    if tuple(g.shape) != tuple(w.shape):
+        assert g.dim() == len(w.shape), (tuple(g.shape), w.shape)
+        assert all(gs <= ws for gs, ws in zip(g.shape, w.shape)), \
+            f"input {tuple(g.shape)} exceeds module interface {w.shape}"
+        padded = g.new_zeros(w.shape)
+        padded[tuple(slice(0, gs) for gs in g.shape)] = g
+        g = padded
+        rep.pads += 1
+        rep.identity = False
+        rep.bytes_moved += _leaf_bytes(g)
+    return g
+
+
 def adapt_inputs(args: tuple, abstract_inputs: tuple
                  ) -> tuple[tuple, AdaptorReport]:
-    """Coerce caller args (numpy arrays or tensors) to the module's
-    abstract input signature (TensorSpecs)."""
+    """Coerce caller args (numpy arrays or tensors, or nested dicts, lists
+    and tuples of them) to the module's abstract input signature (the same
+    structures of TensorSpecs), leaf by leaf."""
     rep = AdaptorReport()
     out = []
-    for g, w in zip(args, abstract_inputs):
-        g = torch.as_tensor(np.asarray(g) if not torch.is_tensor(g) else g)
-        if g.dtype != w.dtype:
-            g = g.to(w.dtype)
-            rep.casts += 1
-            rep.identity = False
-            rep.bytes_moved += _leaf_bytes(g)
-        if tuple(g.shape) != tuple(w.shape):
-            assert g.dim() == len(w.shape), (tuple(g.shape), w.shape)
-            assert all(gs <= ws for gs, ws in zip(g.shape, w.shape)), \
-                f"input {tuple(g.shape)} exceeds module interface {w.shape}"
-            padded = g.new_zeros(w.shape)
-            padded[tuple(slice(0, gs) for gs in g.shape)] = g
-            g = padded
-            rep.pads += 1
-            rep.identity = False
-            rep.bytes_moved += _leaf_bytes(g)
-        out.append(g)
+    for given, want_tree in zip(args, abstract_inputs):
+        flat_g, rebuild = _flatten(given)
+        flat_w, _ = _flatten(want_tree)
+        out.append(rebuild([_adapt_leaf(g, w, rep)
+                            for g, w in zip(flat_g, flat_w)]))
     return tuple(out), rep
 
 

@@ -12,6 +12,7 @@ SLO.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
     PYTHONPATH=src python -m repro_torch.launch.serve --daemon [--contract]
+        [--trace-out trace.json]
 """
 from __future__ import annotations
 
@@ -92,6 +93,11 @@ def serve(run: ServeRun, log=print) -> dict:
                               compute_dtype=torch.float32,
                               kv_dtype=torch.float32,
                               attn_impl=run.attn_impl, ssd_impl="pallas")
+    if cfg.moe is not None:
+        # MoE layers follow the kernel knob: the card path gathers tokens
+        # to experts ("ep"), the plain path is the one-hot oracle
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl="ep" if run.attn_impl == "pallas" else "dense"))
     gen = torch.Generator(device=device)
     params = api.init_params(cfg, gen.manual_seed(run.seed))
 
@@ -120,7 +126,7 @@ class DaemonServeRun:
     preemptive: bool = True
     contract: bool = False          # register a QoSContract for "live"
     contract_rate_per_s: float = 50.0
-    trace_out: str = ""             # Chrome trace: waits for ROADMAP A14
+    trace_out: str = ""             # write a Chrome trace here (Perfetto)
     seed: int = 0
     device: str = "cuda"
 
@@ -146,10 +152,6 @@ def serve_daemon(run: DaemonServeRun, log=print) -> dict:
     from repro_torch.core.daemon import _now_ms
     from repro_torch.core.simulator import p95
 
-    if run.trace_out:
-        raise NotImplementedError(
-            "--trace-out needs the flight recorder (repro_torch.obs), "
-            "which waits for ROADMAP A14")
     device = api.resolve_device(run.device)
     if device.type == "cuda":
         n_dev, devices = torch.cuda.device_count(), None
@@ -158,8 +160,13 @@ def serve_daemon(run: DaemonServeRun, log=print) -> dict:
     spec = uniform_shell(f"serve{n_dev}_s{n_dev}", (1, n_dev), n_dev)
     reg = default_registry()
     reg.register_shell(spec)
+    recorder = None
+    if run.trace_out:
+        from repro_torch.obs import FlightRecorder
+        # wall-clock sampling: one gauge row per 100 ms of serving
+        recorder = FlightRecorder(sample_every_ms=100.0)
     daemon = Daemon(Shell(spec, devices), reg,
-                    PolicyConfig(preemptive=run.preemptive))
+                    PolicyConfig(preemptive=run.preemptive), obs=recorder)
     contract = None
     if run.contract:
         # the degraded tier: same sobel kernel builder, declared at a
@@ -223,11 +230,21 @@ def serve_daemon(run: DaemonServeRun, log=print) -> dict:
             f"preemptions={s['preemptions']} "
             f"reconfigs={s['reconfigurations']} reuses={s['reuses']}"
             f"{extra}")
-        return {"live_p95_ms": live_p95, "slo_misses": misses,
-                "live_rejected": rejected, "wall_s": wall,
-                "stats": dict(s), "slo": slo, "metrics": daemon.metrics,
-                "handles": {"live": live_handles, "batch": batch_handles},
-                "inputs": {"mandelbrot": (re_t, im_t), "sobel": (img,)}}
+        result = {"live_p95_ms": live_p95, "slo_misses": misses,
+                  "live_rejected": rejected, "wall_s": wall,
+                  "stats": dict(s), "slo": slo, "metrics": daemon.metrics,
+                  "handles": {"live": live_handles, "batch": batch_handles},
+                  "inputs": {"mandelbrot": (re_t, im_t), "sobel": (img,)}}
+        if recorder is not None:
+            from repro_torch.obs import export_chrome_trace
+            export_chrome_trace(recorder.tracer, run.trace_out)
+            c = recorder.counts
+            log(f"[serve/daemon] obs: {len(recorder.tracer.events)} "
+                f"trace events -> {run.trace_out} (open in Perfetto); "
+                f"chunks started={c['chunks_started']} "
+                f"completed={c['chunks_completed']} "
+                f"preempted={c['chunks_preempted']}")
+        return result
     finally:
         daemon.shutdown()
 
@@ -249,6 +266,10 @@ def main():
                          "(admission screening + attainment ledger)")
     ap.add_argument("--contract-rate", type=float, default=50.0,
                     help="contract target arrival rate (jobs/s)")
+    ap.add_argument("--trace-out", default="",
+                    help="with --daemon: attach the flight recorder and "
+                         "write a Chrome trace JSON here (open in "
+                         "Perfetto)")
     args = ap.parse_args()
     if args.daemon:
         serve_daemon(DaemonServeRun(priority_hi=args.priority_hi,
@@ -256,6 +277,7 @@ def main():
                                     preemptive=not args.no_preempt,
                                     contract=args.contract,
                                     contract_rate_per_s=args.contract_rate,
+                                    trace_out=args.trace_out,
                                     device=args.device))
         return
     serve(ServeRun(arch=args.arch, batch=args.batch,

@@ -6,8 +6,8 @@ shapes and initializers (every param has `cfg.param_dtype`).  Block params carry
 axis (one entry per repeat of `layer_plan()`), as in the reference, so a
 converted reference param tree maps across leaf for leaf.
 
-The dense and SSM families are ported.  The other families raise
-NotImplementedError naming the ROADMAP item that ports them.
+The dense, SSM, MoE and hybrid families are ported.  The other families
+raise NotImplementedError naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -19,11 +19,9 @@ import torch
 
 from repro_torch.models import layers, mamba as mamba_mod
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "moe", "hybrid")
 # family -> the ROADMAP item that ports it
 _FAMILY_ITEM = {
-    "moe": "A10 (MoE)",
-    "hybrid": "A10 (MoE, for the hybrid's MoE layers)",
     "encdec": "A11 (encoder-decoder)",
     "vlm": "A11 (VLM)",
 }
@@ -140,15 +138,33 @@ class ModelConfig:
     def layer_plan(self):
         """Returns (n_groups, per-group sub-layer plan).
 
-        Each sub-layer is (mixer, ffn).  The dense family repeats one
-        (attn, dense) sub-layer n_layers times, the SSM family one
-        (mamba, none); the reference's other plans arrive with their
-        families (ROADMAP A10, A11).
+        Each sub-layer is (mixer, ffn) with mixer in {attn, mamba} and ffn
+        in {dense, moe, none}.  Homogeneous families repeat a one-sub-layer
+        plan n_layers times; the MoE family a plan of `moe.every`
+        sub-layers; the hybrid (jamba) super-blocks of `attn_every`
+        sub-layers, attention in the middle one, MoE on the odd ones.
         """
         require_ported(self)
+        if self.family == "dense":
+            return self.n_layers, [("attn", "dense")]
+        if self.family == "moe":
+            assert self.moe is not None
+            plan = [("attn", "moe" if (i % self.moe.every == 0) else "dense")
+                    for i in range(self.moe.every)]
+            assert self.n_layers % self.moe.every == 0
+            return self.n_layers // self.moe.every, plan
         if self.family == "ssm":
             return self.n_layers, [("mamba", "none")]
-        return self.n_layers, [("attn", "dense")]
+        assert self.attn_every > 0 and self.moe is not None   # hybrid
+        period = self.attn_every
+        attn_pos = period // 2
+        plan = []
+        for i in range(period):
+            mixer = "attn" if i == attn_pos else "mamba"
+            ffn = "moe" if (i % self.moe.every == 1) else "dense"
+            plan.append((mixer, ffn))
+        assert self.n_layers % period == 0
+        return self.n_layers // period, plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,6 +221,17 @@ def _mlp_table(cfg: ModelConfig) -> dict:
     return t
 
 
+def _moe_table(cfg: ModelConfig) -> dict:
+    m = cfg.moe
+    d = cfg.d_model
+    return {
+        "w_router": ParamSpec((d, m.n_experts)),
+        "w1": ParamSpec((m.n_experts, d, m.d_ff)),
+        "w3": ParamSpec((m.n_experts, d, m.d_ff)),
+        "w2": ParamSpec((m.n_experts, m.d_ff, d)),
+    }
+
+
 def _mamba_table(cfg: ModelConfig) -> dict:
     s = cfg.mamba_spec
     d = cfg.d_model
@@ -247,7 +274,10 @@ def _sublayer_table(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
         t["mamba"] = _mamba_table(cfg)
     if ffn != "none":
         t.update(_norm_table(cfg, "ln2"))
-        t["mlp"] = _mlp_table(cfg)
+        if ffn == "dense":
+            t["mlp"] = _mlp_table(cfg)
+        else:
+            t["moe"] = _moe_table(cfg)
     return t
 
 
@@ -299,7 +329,8 @@ def _init_leaf(spec: ParamSpec, cfg: ModelConfig,
     scale = min(0.02, (1.0 / max(fan_in, 1)) ** 0.5)
     x = torch.empty(spec.shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (x * scale).to(dtype)
+    # scaled in place: a stacked expert leaf is up to 12.9 GB at full width
+    return x.mul_(scale).to(dtype)
 
 
 def unflatten(items) -> dict:

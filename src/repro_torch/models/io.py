@@ -10,7 +10,8 @@ from repro_torch.models.api import ModelConfig, ShapeCell
 def make_batch(cfg: ModelConfig, cell: ShapeCell,
                generator: torch.Generator) -> dict:
     """{"tokens": [B, S] int32} on `generator.device`, uniform over the
-    logical vocabulary (the dense and SSM families take tokens only)."""
+    logical vocabulary (the dense, SSM, MoE and hybrid families take tokens
+    only)."""
     api.require_ported(cfg)
     tokens = torch.randint(0, cfg.vocab, (cell.global_batch, cell.seq_len),
                            generator=generator, device=generator.device,

@@ -1,4 +1,4 @@
-"""Decoder stack, loss, prefill and decode steps (dense and SSM families).
+"""Decoder stack, loss, prefill and decode steps (dense, SSM, MoE, hybrid).
 
 Mirrors `repro/models/stack.py`.  Block params keep the reference's stacked
 layout (every leaf has a leading `groups` axis) and a plain Python loop
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import api, layers, mamba as mamba_mod
+from repro_torch.models import api, layers, mamba as mamba_mod, moe as moe_mod
 from repro_torch.models.api import ModelConfig
 
 
@@ -18,6 +18,13 @@ def _norm(sub, prefix, x, cfg: ModelConfig):
     if cfg.norm_kind == "rms":
         return layers.rms_norm(x, sub[f"{prefix}_w"])
     return layers.layer_norm(x, sub[f"{prefix}_w"], sub[f"{prefix}_b"])
+
+
+def moe_spec(cfg: ModelConfig) -> moe_mod.MoESpec:
+    m = cfg.moe
+    return moe_mod.MoESpec(
+        n_experts=m.n_experts, top_k=m.top_k, d_ff=m.d_ff,
+        capacity_factor=m.capacity_factor, impl=m.impl)
 
 
 def _index(tree, i: int):
@@ -28,9 +35,11 @@ def _index(tree, i: int):
 
 def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
               cache=None, cache_pos=None):
-    """One (mixer, ffn) sub-layer; returns h.  `cache` (this sub-layer's
-    views into the stacked cache) is updated in place."""
+    """One (mixer, ffn) sub-layer; returns (h, aux), aux the MoE layer's
+    load-balance loss (0 without one).  `cache` (this sub-layer's views
+    into the stacked cache) is updated in place."""
     mixer, ffn = plan_item
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if mixer == "attn":
         # attention writes the new K/V into the cache views itself
         y, _ = layers.attention(
@@ -49,7 +58,11 @@ def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
     if ffn == "dense":
         h = h + layers.mlp(sub["mlp"], _norm(sub, "ln2", h, cfg),
                            cfg.mlp_kind)
-    return h
+    elif ffn == "moe":
+        y, aux = moe_mod.moe_ffn(sub["moe"], _norm(sub, "ln2", h, cfg),
+                                 moe_spec(cfg))
+        h = h + y
+    return h, aux
 
 
 def run_stack(blocks, cfg: ModelConfig, h, positions, *, cache=None,
@@ -58,18 +71,20 @@ def run_stack(blocks, cfg: ModelConfig, h, positions, *, cache=None,
 
     blocks: tree whose leaves have a leading `groups` axis.
     cache: matching tree (leading groups axis) or None; written in place.
-    Returns (h, cache).
+    Returns (h, cache, aux), aux summed over every sub-layer of every group.
     """
     _, plan = cfg.layer_plan()
     n_groups = api.flatten(blocks)[0][1].shape[0]
+    aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     for g in range(n_groups):
         group = _index(blocks, g)
         cache_g = None if cache is None else _index(cache, g)
         for i, item in enumerate(plan):
             sub_cache = None if cache_g is None else cache_g[f"sub{i}"]
-            h = _sublayer(group[f"sub{i}"], cfg, item, h, positions,
-                          cache=sub_cache, cache_pos=cache_pos)
-    return h, cache
+            h, aux = _sublayer(group[f"sub{i}"], cfg, item, h, positions,
+                               cache=sub_cache, cache_pos=cache_pos)
+            aux_sum = aux_sum + aux
+    return h, cache, aux_sum
 
 
 # ---------------------------------------------------------------------------
@@ -104,13 +119,14 @@ def unembed(params, cfg: ModelConfig, h):
 
 def forward(params, cfg: ModelConfig, batch):
     """Teacher-forcing forward. batch: {"tokens": [B, S]}.
-    Returns (h_final, aux); aux is 0 for the dense and SSM families."""
+    Returns (h_final, aux); aux is the MoE layers' summed load-balance
+    loss (0 for the dense and SSM families)."""
     tokens = batch["tokens"]
     h = embed_tokens(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, _ = run_stack(params["blocks"], cfg, h, positions)
+    h, _, aux = run_stack(params["blocks"], cfg, h, positions)
     h = _norm(params["final"], "lnf", h, cfg)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def _ce_sum(params, cfg: ModelConfig, h, targets):
@@ -183,8 +199,8 @@ def build_prefill_fn(cfg: ModelConfig, max_len: int):
         cache = init_cache(cfg, b, max_len, tokens.device)
         h = embed_tokens(params, cfg, tokens)
         positions = torch.arange(s, device=tokens.device)
-        h, cache = run_stack(params["blocks"], cfg, h, positions,
-                             cache=cache, cache_pos=0)
+        h, cache, _ = run_stack(params["blocks"], cfg, h, positions,
+                                cache=cache, cache_pos=0)
         h = _norm(params["final"], "lnf", h, cfg)
         logits = unembed(params, cfg, h[:, -1:])[:, 0]
         return cache, logits
@@ -198,8 +214,8 @@ def build_decode_fn(cfg: ModelConfig):
         s = tokens.shape[1]
         h = embed_tokens(params, cfg, tokens)
         positions = pos + torch.arange(s, device=tokens.device)
-        h, cache = run_stack(params["blocks"], cfg, h, positions,
-                             cache=cache, cache_pos=pos)
+        h, cache, _ = run_stack(params["blocks"], cfg, h, positions,
+                                cache=cache, cache_pos=pos)
         h = _norm(params["final"], "lnf", h, cfg)
         logits = unembed(params, cfg, h)[:, -1]
         next_tok = logits.argmax(dim=-1).to(tokens.dtype)

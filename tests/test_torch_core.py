@@ -14,8 +14,10 @@ Three holds on `repro_torch.core` and `repro_torch.analysis`:
    (the port's `Shell` raises without CUDA), also for a suite that imports
    it inside a test.
 
-`test_network` and `test_simulator_core` import the flight recorder
-(`repro.obs`) or the golden builders directly; they wait for ROADMAP A14.
+The flight recorder (`repro_torch.obs`) is a copy too.  `test_obs`,
+`test_network` and `test_simulator_core` import the golden builders by
+the bare name `golden_traces`; while such a suite loads, and while each of
+its tests runs, that name resolves to the port's copy of the module.
 """
 from __future__ import annotations
 
@@ -42,10 +44,12 @@ PORT = ROOT / "src" / "repro_torch"
 COPIED = ["core/allocator.py", "core/arrivals.py", "core/checkpoint.py",
           "core/network.py", "core/registry.py", "core/slo.py",
           "core/scheduler.py", "core/fabric.py", "core/simulator.py",
-          "core/daemon.py", "core/__init__.py", "analysis/sanitizer.py"]
+          "core/daemon.py", "core/__init__.py", "analysis/sanitizer.py",
+          "obs/__init__.py", "obs/trace.py", "obs/recorder.py",
+          "obs/export.py"]
 SUITES = ["test_core_allocator", "test_core_scheduler", "test_fabric",
           "test_checkpoint", "test_preemption", "test_reservation",
-          "test_slo"]
+          "test_slo", "test_obs", "test_network", "test_simulator_core"]
 GOLDEN_MODULE = "_port_golden_traces"
 
 
@@ -158,19 +162,23 @@ class CpuShell(Shell):
 
 
 def _on_cpu(fn):
-    """Run a suite's test with `Shell` bound to CpuShell, also for an
-    import of it inside the test."""
+    """Run a suite's test with `Shell` bound to CpuShell and the name
+    `golden_traces` to the port's copy, also for an import of either
+    inside the test."""
     @functools.wraps(fn)
     def run(*args, **kwargs):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(port_core, "Shell", CpuShell)
+            mp.setitem(sys.modules, "golden_traces", golden())
             return fn(*args, **kwargs)
     return run
 
 
 def _collect(suite: str) -> None:
-    golden()
-    mod = _load(f"_port_{suite}", TESTS / f"{suite}.py")
+    with pytest.MonkeyPatch.context() as mp:
+        # the suite's `from golden_traces import ...` binds the port's copy
+        mp.setitem(sys.modules, "golden_traces", golden())
+        mod = _load(f"_port_{suite}", TESTS / f"{suite}.py")
     if "Shell" in mod.__dict__:
         mod.Shell = CpuShell
     for name, obj in list(vars(mod).items()):

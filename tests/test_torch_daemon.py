@@ -11,6 +11,7 @@ run their plain versions.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -165,6 +166,53 @@ def test_adaptor_report_and_values_equal_reference(rows, cols, dtype):
     assert dataclasses.asdict(rep) == dataclasses.asdict(want_rep)
     assert got.dtype == torch.float32 and tuple(got.shape) == (64, 64)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _spec_pair(shape, dtype):
+    return (jax.ShapeDtypeStruct(shape, getattr(jnp, dtype)),
+            TensorSpec(shape, getattr(torch, dtype)))
+
+
+STRUCTURED_CASES = {
+    # one chunk argument (float32 [4,8], int64 [2,8]) against the
+    # interface (float32 [4,8], int32 [4,8]): a cast and a pad
+    "tuple": ((np.arange(32, dtype=np.float32).reshape(4, 8),
+               np.arange(16, dtype=np.int64).reshape(2, 8)),
+              (((4, 8), "float32"), ((4, 8), "int32"))),
+    # nested dicts and lists, keys given out of sorted order
+    "nested_dict": ({"z": np.ones((3, 5), np.float64),
+                     "a": [np.arange(6, dtype=np.int32).reshape(2, 3),
+                           {"m": np.full((8,), 2.0, np.float32)}]},
+                    {"a": [((4, 3), "int32"), {"m": ((8,), "float32")}],
+                     "z": ((3, 8), "float32")}),
+}
+
+
+def _specs(tree, which):
+    """The interface from (shape, dtype name) leaves: jax's specs
+    (which=0) or the port's (which=1)."""
+    if isinstance(tree, dict):
+        return {k: _specs(v, which) for k, v in tree.items()}
+    if isinstance(tree[-1], str):
+        return _spec_pair(*tree)[which]
+    return type(tree)(_specs(v, which) for v in tree)
+
+
+@pytest.mark.parametrize("case", sorted(STRUCTURED_CASES))
+def test_adaptor_structured_chunk_arg_equals_reference(case):
+    """A chunk argument that is a tuple or a nested dict is adapted leaf
+    by leaf, as the reference's pytree flatten pairs the leaves."""
+    given, want = STRUCTURED_CASES[case]
+    (ref_out,), ref_rep = ref_bus.adapt_inputs((given,), (_specs(want, 0),))
+    (out,), rep = bus.adapt_inputs((given,), (_specs(want, 1),))
+    assert dataclasses.asdict(rep) == dataclasses.asdict(ref_rep)
+    assert not rep.identity and rep.casts >= 1 and rep.pads >= 1
+    ref_leaves, ref_tree = jax.tree.flatten(ref_out)
+    leaves, tree = jax.tree.flatten(out)
+    assert tree == ref_tree          # the same structure, rebuilt
+    for got, ref in zip(leaves, ref_leaves):
+        assert str(got.dtype).removeprefix("torch.") == str(ref.dtype)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 def test_adaptor_takes_tensors_and_rejects_oversize():
@@ -375,7 +423,16 @@ def test_serve_daemon_contract_counts_add_up():
             h.future.result()
 
 
-def test_serve_daemon_trace_out_waits_for_obs():
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        serve_daemon(DaemonServeRun(device="cpu", trace_out="t.json"),
-                     log=lambda _: None)
+def test_serve_daemon_trace_out_waits_for_obs(tmp_path):
+    """`trace_out` attaches the flight recorder and writes a Chrome trace
+    whose chunk counts are the daemon's."""
+    path = tmp_path / "t.json"
+    out = serve_daemon(DaemonServeRun(device="cpu", trace_out=str(path)),
+                       log=lambda _: None)
+    trace = json.loads(path.read_text())
+    assert trace["traceEvents"]
+    counts = out["metrics"]["obs"]["counters"]
+    assert counts["chunks_completed"] == out["stats"]["chunks"] == 14
+    assert counts["chunks_preempted"] == out["stats"]["preemptions"]
+    assert counts["chunks_started"] == (counts["chunks_completed"]
+                                        + counts["chunks_preempted"])

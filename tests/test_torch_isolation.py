@@ -37,9 +37,13 @@ def test_importing_the_port_loads_no_jax_or_reference():
     bad, names = rest.split("] ", 1)
     assert int(n) >= 15, out.stdout      # every module was imported
     assert bad.strip() == "[", out.stdout
-    # the runtime is in the walk: policy core, device layer, sanitizer
+    # the runtime is in the walk: policy core, device layer, sanitizer,
+    # flight recorder; and the MoE layer
     for name in ("repro_torch.core.daemon", "repro_torch.core.zoo",
-                 "repro_torch.core.scheduler", "repro_torch.analysis.sanitizer"):
+                 "repro_torch.core.scheduler", "repro_torch.analysis.sanitizer",
+                 "repro_torch.obs.recorder", "repro_torch.obs.export",
+                 "repro_torch.models.moe",
+                 "repro_torch.configs.jamba_v0_1_52b"):
         assert name in names.split(), names
 
 

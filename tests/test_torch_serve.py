@@ -156,14 +156,19 @@ def test_serve_on_cpu_returns_tokens(impl):
 
 
 def test_unported_families_raise():
-    for arch in ("jamba-v0.1-52b", "qwen3-moe-30b-a3b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    """The encoder-decoder and VLM families wait for ROADMAP A11; the MoE
+    and hybrid families are ported."""
+    for arch in ("whisper-large-v3", "phi-3-vision-4.2b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             configs.get(arch)
+    for arch in ("jamba-v0.1-52b", "qwen3-moe-30b-a3b",
+                 "phi3.5-moe-42b-a6.6b"):
+        assert configs.get(arch).family in ("moe", "hybrid")
     cfg = dataclasses.replace(configs.get("llama3.2-3b", reduced=True),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+                              family="encdec")
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         api.param_table(cfg)
-    cfg = dataclasses.replace(configs.get("mamba2-780m", reduced=True),
-                              family="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    cfg = dataclasses.replace(configs.get("llama3.2-3b", reduced=True),
+                              family="vlm")
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         cfg.layer_plan()
