@@ -7,9 +7,10 @@ Phases, in order; any failed check makes the exit code non-zero and keeps
 the final `{"ok": true, ...}` line from printing:
   1. report the card (nvidia-smi name and power limit), turn TF32 off for
      matmuls and cuDNN, build the CUDA kernels from the sources (timed);
-     fail on a register spill in a main-path instantiation; count the HMMA
-     (tensor-core) instructions of the hd=128 flash kernels where the
-     toolkit has cuobjdump;
+     fail on a register spill in a main-path instantiation; report the
+     registers and CTAs an SM of the MHA decode instances (G=1 at hd=64
+     and hd=96); count the HMMA (tensor-core) instructions of the hd=128
+     and hd=96 flash kernels where the toolkit has cuobjdump;
   2. hold each kernel against its plain PyTorch version on the card: the
      reference test cases plus the full-width llama3.2-3b and mamba2-780m
      shapes, each in fp32 (tolerance 2e-5; SSD state 1e-4) and bf16 (2e-2;
@@ -23,7 +24,10 @@ the final `{"ok": true, ...}` line from printing:
      carried state; decode at jamba's and qwen3-moe's groupings (32 q
      heads on 8 and on 4 kv heads) at lengths 1040 and 1, flash at both
      at S=1024, and the SSD at jamba's shape (128 heads, d_state 16) at
-     its init's decay and step ranges;
+     its init's decay and step ranges; MHA at whisper's 20 heads of 64
+     and phi-3-vision's 32 of 96: decode at lengths 1, 7, 131, 1040 and
+     1056 and B=1 (hd=96), flash at S=1024, and at hd=96 also S = 1, 7,
+     1000, 1040, B=1 and inputs x3 against fp64;
   3. serve llama3.2-3b at full width (B=4, 1024-token prompt, 32 new
      tokens, attn_impl="pallas"): the decode kernel must launch exactly
      28 layers x 31 steps = 868 times and no other kernel; a plain ("xla")
@@ -51,7 +55,7 @@ the final `{"ok": true, ...}` line from printing:
      enqueues; the flash kernel also in bf16), prefill and decode of both
      models, the llama3.2-3b forward on the flash kernel and with plain
      attention, and a torch.profiler breakdown;
-  8. the FOS runtime on the card (run after phase 6; then 9, 10 and 7):
+  8. the FOS runtime on the card (run after phase 6; then 9-12 and 7):
      (a) `serve_daemon` as the reference's (mandelbrot and sobel tenants on
      one slot and its stream): 14 chunks, every output equal to a direct
      `run_placement` on the card, the mandelbrot counts within 1% of
@@ -90,11 +94,23 @@ the final `{"ok": true, ...}` line from printing:
      naming router, dispatch, experts and combine).  Each frees its params
      before the next phase; every phase prints its wall time and
      max_memory_allocated.
-Each of phases 3-6 and 8-10 sets every launch count to 0 just before it
-drives a path and reads the counts just after.  Phase 7 also times the
-decode kernel at jamba's and qwen3-moe's groupings, the flash kernel at
-their forward shapes and the SSD kernel at jamba's shape.  Then the
-`kernels` JSON line, the card line and the final line.
+ 11. whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+     layers, 1.607 B params, 6.43 GB in fp32; 1536 stub frames), and
+ 12. phi-3-vision-4.2b at full width and depth (32 layers, 3.822 B params,
+     15.29 GB; 576 stub patches spliced over the prompt's first
+     positions): served as phase 3 (exactly 32 x 31 = 992 decode
+     launches, no other kernel; cross attention and the encoder are plain,
+     as the reference's), every step's logits within 1e-3 of a
+     teacher-forced plain rerun; the forward (exactly 32 flash launches,
+     hidden state within 1e-3); prefill and decode-step times and a
+     profile of one prefill, whisper's naming its encoder's and its cross
+     attention's shares.
+Each of phases 3-6 and 8-12 sets every launch count to 0 just before it
+drives a path and reads the counts just after.  Phase 7 (run last) also
+times the decode kernel at jamba's, qwen3-moe's, whisper's and
+phi-3-vision's heads, the flash kernel at their forward shapes and the
+SSD kernel at jamba's shape.  Then the `kernels` JSON line, the card line
+and the final line.
 
 It imports nothing of jax or of the reference package `repro`.
 """
@@ -140,7 +156,8 @@ FLOP_PER_S = {torch.float32: TF32_FLOP_PER_S / 3,
 DEVICE = "cuda"
 LLAMA, MAMBA = "llama3.2-3b", "mamba2-780m"
 JAMBA, QWEN_MOE = "jamba-v0.1-52b", "qwen3-moe-30b-a3b"
-LAYERS = {LLAMA: 28, MAMBA: 48}
+WHISPER, PHI3V = "whisper-large-v3", "phi-3-vision-4.2b"
+LAYERS = {LLAMA: 28, MAMBA: 48, WHISPER: 32, PHI3V: 32}
 # full width in fp32 does not fit one 80 GB card, so these two are cut in
 # depth, never in width: jamba to one super-block of 8 sub-layers (13.27 B
 # params, every sub-layer kind of its plan), qwen3-moe to 16 of its 48
@@ -166,6 +183,13 @@ DECODE_CASES = [
     # full) and qwen3-moe's (32 on 4: g=8, the G=8 instance), served
     (4, 1056, 32, 8, 128, 1040), (4, 1056, 32, 8, 128, 1),
     (4, 1056, 32, 4, 128, 1040), (4, 1056, 32, 4, 128, 1),
+    # MHA (g=1, the G=1 instance): whisper's 20 heads of 64, and
+    # phi-3-vision's 32 of 96 (rows on 32 / 16 lanes, 8 of them idle) at
+    # lengths that leave splits empty, ragged and full, and B=1
+    (4, 1056, 20, 20, 64, 1040), (4, 1056, 20, 20, 64, 1),
+    (4, 1056, 32, 32, 96, 1), (4, 1056, 32, 32, 96, 7),
+    (4, 1056, 32, 32, 96, 131), (4, 1056, 32, 32, 96, 1040),
+    (4, 1056, 32, 32, 96, 1056), (1, 1056, 32, 32, 96, 5),
 ]
 # (b, sq, sk, hq, hkv, hd): the reference's FLASH_CASES, then the
 # llama3.2-3b forward shape; then, at its head counts, S=1 and S=7 (fewer
@@ -180,7 +204,16 @@ FLASH_CASES = [
     (1, 1024, 1024, 24, 8, 128),
     # the jamba and qwen3-moe forwards' groupings
     (4, 1024, 1024, 32, 8, 128), (4, 1024, 1024, 32, 4, 128),
+    # the whisper decoder's and phi-3-vision's forwards (MHA, hd 64 and
+    # 96), and at hd 96: S = 1, 7, 1000, 1040 and B=1
+    (4, 1024, 1024, 20, 20, 64), (4, 1024, 1024, 32, 32, 96),
+    (4, 1, 1, 32, 32, 96), (4, 7, 7, 32, 32, 96),
+    (4, 1000, 1000, 32, 32, 96), (4, 1040, 1040, 32, 32, 96),
+    (1, 1024, 1024, 32, 32, 96),
 ]
+# inputs x3 against fp64: (hq, hkv, hd) of llama's and phi-3-vision's
+# forwards
+PEAKY_CASES = [(24, 8, 128), (32, 32, 96)]
 # (b, L, h, p, g, n, chunk): the full-width mamba2-780m prefill shape, and
 # jamba's (128 heads, d_state 16)
 SSD_FULL = (4, 1024, 48, 64, 1, 128, 128)
@@ -195,17 +228,23 @@ SSD_CASES = [
 ]
 # the kernel instantiations the main paths run, as ptxas names them
 # (mangled): decode at hd=128, g<=4 (llama, jamba) and g<=8 (qwen3-moe, fp32
-# and bf16); SSD at P=64, N=128 (mamba2-780m) and N=16 (jamba), with their
-# C.B^T kernels; flash at hd=128
+# and bf16), and g=1 at hd=64 (whisper) and hd=96 (phi-3-vision); SSD at
+# P=64, N=128 (mamba2-780m) and N=16 (jamba), with their C.B^T kernels;
+# flash at hd=128, 64 and 96
 FLASH_MAIN = "flash_kernelIfLi128E"
+DECODE_G1 = ("decode_kernelIfLi64ELi1E", "decode_kernelIfLi96ELi1E")
 MAIN_PATH_INSTANCES = (
     "decode_kernelIfLi128ELi4E", "decode_kernelIfLi128ELi8E",
-    "decode_kernelI13__nv_bfloat16Li128ELi8E",
+    "decode_kernelI13__nv_bfloat16Li128ELi8E", *DECODE_G1,
     "ssd_chunk_state_kernelIfLi64ELi128E",
     "ssd_chunk_scan_kernelIfLi64ELi128E", "ssd_cb_kernelIfLi128E",
     "ssd_chunk_state_kernelIfLi64ELi16E",
     "ssd_chunk_scan_kernelIfLi64ELi16E", "ssd_cb_kernelIfLi16E",
-    "ssd_state_pass_kernel", FLASH_MAIN)
+    "ssd_state_pass_kernel", FLASH_MAIN, "flash_kernelIfLi64E",
+    "flash_kernelIfLi96E")
+# the flash instances whose SASS must hold HMMA (tensor-core) instructions
+FLASH_HMMA = (FLASH_MAIN, "flash_kernelI13__nv_bfloat16Li128E",
+              "flash_kernelIfLi96E", "flash_kernelI13__nv_bfloat16Li96E")
 # y and final state, as the reference's test_ssd_kernel_matches_ref
 SSD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}
 
@@ -301,8 +340,17 @@ def phase_setup(smoke: Smoke) -> None:
     smoke.check("ptxas: main-path instantiations do not spill",
                 not missing and not any(k["spill"] for k in main_path),
                 f"{len(main_path)} kernels, not found: {missing or 'none'}")
+    # the MHA decode instances (whisper, phi-3-vision): registers, and the
+    # CTAs of 256 threads an SM that registers and shared memory allow
+    for k in main_path:
+        inst = next((m for m in DECODE_G1 if m in k["name"]), None)
+        if inst:
+            k["ctas_per_sm"] = _ctas_per_sm(k["registers"], k["smem"], 256)
+            smoke.results.setdefault("decode_g1", {})[inst] = k
+            print(f"   {inst}: {k['registers']} registers, {k['smem']} "
+                  f"bytes shared, {k['ctas_per_sm']} CTAs an SM")
     # the flash kernel's products run on the tensor cores: HMMA in its SASS
-    for inst in (FLASH_MAIN, "flash_kernelI13__nv_bfloat16Li128E"):
+    for inst in FLASH_HMMA:
         hmma = _hmma_count(libs["flash_attention"], inst)
         smoke.results.setdefault("sass_hmma", {})[inst] = hmma
         if hmma is None:
@@ -332,17 +380,30 @@ def _hmma_count(lib: Path, kernel: str) -> int | None:
 
 
 def _ptxas_kernels(log: str) -> list[dict]:
-    """Each entry function of a `-Xptxas -v` log, with its registers and
-    spill stores."""
+    """Each entry function of a `-Xptxas -v` log, with its registers, spill
+    stores and static shared memory."""
     kernels = []
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
-            kernels.append({"name": m.group(1), "registers": 0, "spill": 0})
+            kernels.append({"name": m.group(1), "registers": 0, "spill": 0,
+                            "smem": 0})
         elif kernels and (m := re.search(r"(\d+) bytes spill stores", line)):
             kernels[-1]["spill"] = int(m.group(1))
         elif kernels and (m := re.search(r"Used (\d+) registers", line)):
             kernels[-1]["registers"] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes smem", line):
+                kernels[-1]["smem"] = int(m.group(1))
     return kernels
+
+
+def _ctas_per_sm(registers: int, smem: int, threads: int) -> int:
+    """CTAs of `threads` threads that fit on one H100 SM: 65536 registers
+    (allocated per warp in units of 256), 228 KB of shared memory (1 KB of
+    it reserved per CTA), 2048 threads and 32 CTAs."""
+    warps = threads // 32
+    regs = warps * -(-registers * 32 // 256) * 256
+    return min(65536 // max(regs, 1), 233472 // (smem + 1024),
+               2048 // threads, 32)
 
 
 def _randn(gen, shape, dtype):
@@ -423,20 +484,23 @@ def phase_kernels(smoke: Smoke) -> None:
             smoke.check(f"flash_attention b={b} sq={sq} sk={sk} hq={hq} "
                         f"hkv={hkv} hd={hd} {dtype}", ok,
                         f"max_abs_err={err:.3g}")
-    # a peaky softmax: the full-width shape with inputs x3 (scores x9), where
-    # fp32 itself drifts from the exact result.  The kernel keeps fp32's
-    # accuracy if its error against an fp64 computation is at most twice
-    # the plain fp32 version's
-    q, k, v = (3 * _randn(gen, (4, 1024, h, 128), torch.float32)
-               for h in (24, 8, 8))
-    exact = _attention_fp64(q, k, v)
-    err_kernel = float((fa.flash_attention(q, k, v, causal=True).double()
-                        - exact).abs().max())
-    err_plain = float((fa.flash_attention_plain(q, k, v, causal=True)
-                       .double() - exact).abs().max())
-    smoke.check("flash_attention inputs x3 float32: error vs fp64 within 2x "
-                "the plain fp32 version's", err_kernel <= 2 * err_plain,
-                f"kernel {err_kernel:.3g}, plain fp32 {err_plain:.3g}")
+    # a peaky softmax: the full-width shapes with inputs x3 (scores x9),
+    # where fp32 itself drifts from the exact result.  The kernel keeps
+    # fp32's accuracy if its error against an fp64 computation is at most
+    # twice the plain fp32 version's
+    for hq, hkv, hd in PEAKY_CASES:
+        q, k, v = (3 * _randn(gen, (4, 1024, h, hd), torch.float32)
+                   for h in (hq, hkv, hkv))
+        exact = _attention_fp64(q, k, v)
+        err_kernel = float((fa.flash_attention(q, k, v, causal=True)
+                            .double() - exact).abs().max())
+        err_plain = float((fa.flash_attention_plain(q, k, v, causal=True)
+                           .double() - exact).abs().max())
+        smoke.check(f"flash_attention inputs x3 hq={hq} hkv={hkv} hd={hd} "
+                    f"float32: error vs fp64 within 2x the plain fp32 "
+                    f"version's", err_kernel <= 2 * err_plain,
+                    f"kernel {err_kernel:.3g}, plain fp32 {err_plain:.3g}")
+        del q, k, v, exact
     for b, l, h, p, g, n, chunk in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = _ssd_inputs(gen, b, l, h, p, g, n, dtype)
@@ -553,12 +617,14 @@ def phase_serve(smoke: Smoke, arch: str) -> None:
     _reset_launches()
     out = serve(run)
     launches = _read_launches()
-    # llama: the decode kernel at every layer of every decode step (prefill
-    # attends through plain _sdpa, as the reference); mamba: the SSD scan at
+    # llama, whisper, phi-3-vision: the decode kernel at every (decoder)
+    # layer of every decode step (prefill, and whisper's encoder and cross
+    # attention, are plain, as the reference's); mamba: the SSD scan at
     # every layer of the prefill (its decode step is plain torch)
-    want = ({"decode_attention": layers * (NEW - 1), "flash_attention": 0,
-             "ssd_scan": 0} if arch == LLAMA else
-            {"decode_attention": 0, "flash_attention": 0, "ssd_scan": layers})
+    want = ({"decode_attention": 0, "flash_attention": 0, "ssd_scan": layers}
+            if arch == MAMBA else
+            {"decode_attention": layers * (NEW - 1), "flash_attention": 0,
+             "ssd_scan": 0})
     smoke.results.setdefault("launches", {})[f"serve {arch}"] = launches
     _check_launches(smoke, f"serve {arch}", launches, want)
     tokens, logits = torch.from_numpy(out["tokens"]), out["logits"]
@@ -571,7 +637,8 @@ def phase_serve(smoke: Smoke, arch: str) -> None:
 
     # the plain path, same weights and prompt, fed the served tokens
     params = _params(cfg, run.seed)
-    plain = _teacher_forced(cfg, params, out["prompt"], tokens)
+    plain = _teacher_forced(cfg, params, out["prompt"], tokens,
+                            out["extra"])
     err = float((logits - plain).abs().max())
     ok = bool(torch.allclose(logits, plain, atol=1e-3, rtol=1e-3))
     smoke.results.setdefault("serve", {})[arch] = {
@@ -583,14 +650,15 @@ def phase_serve(smoke: Smoke, arch: str) -> None:
                 f"max_abs_err={err:.3g}")
 
 
-def _teacher_forced(cfg, params, prompt, tokens):
+def _teacher_forced(cfg, params, prompt, tokens, extra=None):
     """The logits of prefill and of each decode step on `cfg`'s path, fed
-    the served `tokens` [B, NEW]: the plain rerun of a served run."""
+    the served `tokens` [B, NEW]: the plain rerun of a served run.  `extra`:
+    the prompt's other inputs (whisper's frames, phi-3-vision's patches)."""
     from repro_torch.models import stack
     toks = tokens.to(prompt.device, torch.int32)
     with torch.inference_mode():
         cache, plain = stack.build_prefill_fn(cfg, PROMPT + NEW)(
-            params, {"tokens": prompt})
+            params, {**(extra or {}), "tokens": prompt})
         plain_logits = [plain]
         decode = stack.build_decode_fn(cfg)
         for i in range(NEW - 1):
@@ -600,21 +668,24 @@ def _teacher_forced(cfg, params, prompt, tokens):
 
 
 def phase_forward(smoke: Smoke, arch: str) -> None:
-    from repro_torch.models import stack
+    from repro_torch.models import io, stack
     layers = LAYERS[arch]
     cfg_k, cfg_p = _full_cfg(arch, "pallas"), _full_cfg(arch, "xla")
     params = _params(cfg_p)
-    gen = torch.Generator(device=DEVICE).manual_seed(1)
-    tokens = torch.randint(0, cfg_p.vocab, (BATCH, PROMPT), generator=gen,
-                           device=DEVICE, dtype=torch.int32)
+    # tokens (and whisper's frames or phi-3-vision's patches)
+    batch = io.make_batch(cfg_p, io.smoke_cell("train", BATCH, PROMPT),
+                          torch.Generator(device=DEVICE).manual_seed(1))
     with torch.inference_mode():
         _reset_launches()
-        h, _ = stack.forward(params, cfg_k, {"tokens": tokens})
+        h, _ = stack.forward(params, cfg_k, batch)
         launches = _read_launches()
-        h_plain, _ = stack.forward(params, cfg_p, {"tokens": tokens})
-    want = ({"decode_attention": 0, "flash_attention": layers,
-             "ssd_scan": 0} if arch == LLAMA else
-            {"decode_attention": 0, "flash_attention": 0, "ssd_scan": layers})
+        h_plain, _ = stack.forward(params, cfg_p, batch)
+    # flash at every (decoder) layer; whisper's encoder is non-causal and
+    # stays plain, as the reference's
+    want = ({"decode_attention": 0, "flash_attention": 0, "ssd_scan": layers}
+            if arch == MAMBA else
+            {"decode_attention": 0, "flash_attention": layers,
+             "ssd_scan": 0})
     smoke.results.setdefault("launches", {})[f"forward {arch}"] = launches
     _check_launches(smoke, f"forward {arch}", launches, want)
     err = float((h - h_plain).abs().max())
@@ -825,7 +896,8 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
 
     flush = torch.empty(64 * 2 ** 20, device=DEVICE)
     res["moe_layer"] = _moe_layer_alone(smoke, arch, cfg_k, params, flush)
-    res["times"] = _moe_model_times(cfg_k, params, flush)
+    res["times"] = _serve_times(cfg_k, params, flush, (
+        "profile_prefill_moe_stages", _moe_stage_profile))
     smoke.results.setdefault("times", {})[arch] = res["times"]
     del params, flush
     gc.collect()
@@ -954,11 +1026,11 @@ def _moe_stage_profile(fn) -> dict:
             "stage_share": {k: v / busy for k, v in stage.items()}}
 
 
-def _moe_model_times(cfg, params, flush) -> dict:
+def _serve_times(cfg, params, flush, stages) -> dict:
     """Prefill ms (CUDA events, median of 5), the median decode step ms
     over a served run's 31 steps, and torch.profiler breakdowns of three
-    decode steps and of one prefill, the latter also with the MoE layers'
-    stages named."""
+    decode steps and of one prefill; `stages` = (key, profile function)
+    adds a breakdown of one prefill with the model's stages named."""
     from repro_torch.models import io, stack
     with torch.inference_mode():
         batch = io.make_batch(cfg, io.smoke_cell("prefill", BATCH, PROMPT),
@@ -992,12 +1064,90 @@ def _moe_model_times(cfg, params, flush) -> dict:
         times["profile_decode_3_steps"] = _profile(three_steps)
         del cache
         times["profile_prefill"] = _profile(lambda: prefill(params, batch))
-        times["profile_prefill_moe_stages"] = _moe_stage_profile(
-            lambda: prefill(params, batch))
+        if stages is not None:
+            key, stage_profile = stages
+            times[key] = stage_profile(lambda: prefill(params, batch))
     print(f"   times: prefill {times['prefill_ms']:.1f} ms, decode step "
-          f"{step_ms:.2f} ms, MoE stages of one prefill "
-          f"{times['profile_prefill_moe_stages']}")
+          f"{step_ms:.2f} ms" + (f", stages of one prefill {times[key]}"
+                                 if stages is not None else ""))
     return times
+
+
+def phase_encdec_vlm(smoke: Smoke, arch: str) -> None:
+    """Phases 11 and 12: whisper-large-v3 and phi-3-vision-4.2b at full
+    width and depth in fp32, their stub frames / patches from
+    `io.make_batch`: served and run cache-free as phases 3 and 4 do, then
+    prefill and decode timed and a prefill profiled (whisper's with its
+    encoder and cross attention named).  The params are freed before it
+    returns."""
+    from repro_torch.models import api
+    cfg = _full_cfg(arch, "pallas")
+    n = api.param_count(cfg)
+    print(f"   {arch}: {cfg.n_layers} decoder layers, {cfg.n_enc_layers} "
+          f"encoder layers, {n / 1e9:.3f} B params ({4 * n / 1e9:.2f} GB "
+          f"in fp32)")
+    phase_serve(smoke, arch)
+    phase_forward(smoke, arch)
+    params = _params(cfg)
+    flush = torch.empty(64 * 2 ** 20, device=DEVICE)
+    smoke.results.setdefault("times", {})[arch] = _serve_times(
+        cfg, params, flush,
+        ("profile_prefill_stages", _whisper_stage_profile)
+        if arch == WHISPER else None)
+    del params, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _whisper_stage_ranges():
+    """torch.profiler ranges around whisper's stages: the encoder
+    (`stack._encode`), the cross attention's k/v from the encoder states
+    (`layers.cross_kv_from_encoder`) and the cross attention itself
+    (`layers.attention` called with `cross_kv`)."""
+    from repro_torch.models import layers, stack
+    real = (stack._encode, layers.cross_kv_from_encoder, layers.attention)
+
+    def ranged(name, fn, only_cross=False):
+        def run(*args, **kwargs):
+            if only_cross and kwargs.get("cross_kv") is None:
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return run
+    stack._encode = ranged("whisper.encoder", real[0])
+    layers.cross_kv_from_encoder = ranged("whisper.cross_kv", real[1])
+    layers.attention = ranged("whisper.cross_attention", real[2], True)
+    try:
+        yield
+    finally:
+        stack._encode, layers.cross_kv_from_encoder, layers.attention = real
+
+
+def _whisper_stage_profile(fn) -> dict:
+    """fn() under torch.profiler with `_whisper_stage_ranges`: the device
+    time of the encoder, the cross k/v, the cross attention and the rest
+    (the decoder's self attention, MLPs and the logits), and their shares
+    of all kernels' time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with _whisper_stage_ranges(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    stage = {}
+    for e in prof.events():
+        if e.name.startswith("whisper.") and e.device_type.name == "CPU":
+            stage[e.name] = stage.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA"
+               and not e.key.startswith("whisper.")) / 1e3
+    if not busy:
+        return {"device_busy_ms": "not measured"}
+    stage["decoder (self attention, MLPs, logits)"] = busy - sum(
+        stage.values())
+    return {"device_busy_ms": busy, "stage_ms": stage,
+            "stage_share": {k: v / busy for k, v in stage.items()}}
 
 
 def _resolved(handles) -> list:
@@ -1363,19 +1513,20 @@ def phase_times(smoke: Smoke) -> None:
     with torch.inference_mode():
         # decode: a mid-run step of the serving path; nested, the same at
         # jamba's and qwen3-moe's groupings (g=4 on 8 kv heads, g=8 on 4)
+        # and at whisper's and phi-3-vision's MHA heads (hd 64 and 96)
         kernels.append(_decode_entry(smoke, gen, flush, hq, hkv, hd, LLAMA))
-        for arch in (JAMBA, QWEN_MOE):
+        for arch in (JAMBA, QWEN_MOE, WHISPER, PHI3V):
             c = _full_cfg(arch, "pallas")
             kernels[-1][arch] = _decode_entry(smoke, gen, flush, c.n_heads,
                                               c.n_kv_heads, c.head_dim, arch)
         # flash: the full-width cache-free forward's attention, in fp32 (the
         # main path) and in bf16 (nested in the fp32 entry), and in fp32 at
-        # jamba's and qwen3-moe's groupings (nested)
+        # jamba's, qwen3-moe's, whisper's and phi-3-vision's heads (nested)
         kernels.append(_flash_entry(smoke, gen, flush, hq, hkv, hd, scale,
                                     f32))
         kernels[-1]["bf16"] = _flash_entry(smoke, gen, flush, hq, hkv, hd,
                                            scale, torch.bfloat16)
-        for arch in (JAMBA, QWEN_MOE):
+        for arch in (JAMBA, QWEN_MOE, WHISPER, PHI3V):
             c = _full_cfg(arch, "pallas")
             kernels[-1][arch] = _flash_entry(
                 smoke, gen, flush, c.n_heads, c.n_kv_heads, c.head_dim,
@@ -1653,10 +1804,14 @@ def main() -> int:
                 lambda: phase_moe_model(smoke, JAMBA))
     smoke.phase(f"10 {QWEN_MOE} cut to {DEPTH_CUT[QWEN_MOE]} layers at full "
                 f"width", lambda: phase_moe_model(smoke, QWEN_MOE))
+    smoke.phase(f"11 {WHISPER} at full width and depth",
+                lambda: phase_encdec_vlm(smoke, WHISPER))
+    smoke.phase(f"12 {PHI3V} at full width and depth",
+                lambda: phase_encdec_vlm(smoke, PHI3V))
     smoke.phase("7 times", lambda: phase_times(smoke))
     r = smoke.results
     for key in ("launches", "serve", "forward", "times", "profile",
-                "daemon", "moe_models", "phases"):
+                "daemon", "moe_models", "decode_g1", "phases"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"total {time.perf_counter() - t0:.1f} s; "

@@ -1,5 +1,4 @@
-"""Architecture config registry (the dense, SSM, MoE and hybrid families
-of the reference's ten).
+"""Architecture config registry: the reference's ten architectures.
 
 Usage:
     from repro_torch import configs
@@ -32,19 +31,12 @@ _MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
-}
-
-# arch id -> the ROADMAP item that ports its family
-_NOT_PORTED = {
-    "whisper-large-v3": "A11 (encoder-decoder)",
-    "phi-3-vision-4.2b": "A11 (VLM)",
+    "whisper-large-v3": "whisper_large_v3",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 
 def get(arch_id: str, reduced: bool = False):
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: ROADMAP {_NOT_PORTED[arch_id]}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

@@ -97,6 +97,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
+// the least power of two >= n (n >= 1), at compile time
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
 // log2(e): scores are kept in base 2 so the softmax uses exp2f
 constexpr float kLog2e = 1.4426950408889634f;
 // finite "minus infinity" of the running max, as the reference kernels use

@@ -26,7 +26,13 @@
 //   - each lane loads 16 bytes of a row, a warp covers 32*16 bytes of rows
 //     per step and keeps kUnroll steps in flight (256 CTAs keep ~4 MB of
 //     loads outstanding at fp32, hd = 128), and the running softmax (m, l,
-//     acc) stays in registers in fp32.  kUnroll = 2 keeps the fp32 hd = 128
+//     acc) stays in registers in fp32.  A row's lanes are a power of two
+//     (the butterfly sums and the merge of a warp's rows need it): where
+//     hd / (16 bytes) is not one (hd = 96: 24 slices in fp32, 12 in bf16),
+//     the row takes the next power of two of lanes (32, 16) and the lanes
+//     past its slices re-read slice 0 (the same address as a busy lane, no
+//     extra traffic) under a zero query, so they add 0 to every score and
+//     their accumulators are never stored.  kUnroll = 2 keeps the fp32 hd = 128
 //     kernel at 80 registers, so three CTAs fit on an SM and a whole
 //     cluster of 8 always finds room; a deeper unroll or a register
 //     prefetch of the next step measured slower on the H100;
@@ -62,10 +68,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               int v_sb, int v_ss, int v_sh) {
   using V = Vec16<T>;
   constexpr int VEC = V::N;            // elements per lane per row
-  constexpr int LPK = HD / VEC;        // lanes per row
+  constexpr int PARTS = HD / VEC;      // 16-byte slices of a row
+  constexpr int LPK = pow2_at_least(PARTS);  // lanes per row
   constexpr int RPW = 32 / LPK;        // rows per warp step
   constexpr int SLOTS = kWarps * RPW;  // rows per CTA step
-  static_assert(HD % VEC == 0 && LPK <= 32, "unsupported head dim");
+  static_assert(HD % VEC == 0 && LPK <= 32 && 32 % LPK == 0 &&
+                    (LPK & (LPK - 1)) == 0,
+                "a row must be whole 16-byte slices on at most 32 lanes");
 
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = static_cast<int>(cluster.num_blocks());
@@ -74,6 +83,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / LPK;          // which row of the warp step
   const int part = lane % LPK;         // which 16-byte slice of the row
+  const bool busy = part < PARTS;      // lanes past the row's slices idle
+  const int slice = busy ? part : 0;
   const int slot = warp * RPW + sub;
   const int hq = hkv * g;
 
@@ -88,10 +99,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     if (gi < g) {
-      const T* qp = q + ((int64_t)b * hq + kvh * g + gi) * HD + part * VEC;
+      const T* qp = q + ((int64_t)b * hq + kvh * g + gi) * HD + slice * VEC;
       V::to_float(load16(qp), qf[gi]);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) qf[gi][e] *= scale * kLog2e;
+      for (int e = 0; e < VEC; ++e)
+        qf[gi][e] = busy ? qf[gi][e] * (scale * kLog2e) : 0.f;
     }
   }
 
@@ -104,8 +116,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < VEC; ++e) acc[gi][e] = 0.f;
   }
 
-  const T* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh + part * VEC;
-  const T* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh + part * VEC;
+  const T* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh + slice * VEC;
+  const T* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh + slice * VEC;
 
   for (int base = row0; base < row1; base += SLOTS * kUnroll) {
     // issue every load of the step before using any of them; rows past
@@ -185,7 +197,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float sm_acc[kWarps][G][HD];
   __shared__ float part_m[G], part_l[G];
   __shared__ float part_acc[G][HD];
-  if (sub == 0) {
+  if (sub == 0 && busy) {
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
       if (gi >= g) continue;
@@ -284,6 +296,7 @@ cudaError_t dispatch_hd(const Args& a, int hd) {
     case 16: return dispatch_g<T, 16>(a);
     case 32: return dispatch_g<T, 32>(a);
     case 64: return dispatch_g<T, 64>(a);
+    case 96: return dispatch_g<T, 96>(a);
     case 128: return dispatch_g<T, 128>(a);
     default: return cudaErrorInvalidValue;
   }

@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 MAX_GROUP = 8       # q heads per kv head held in one CTA's registers
 MAX_SPLITS = 8      # CTAs of one cluster: the portable cluster size
 CTAS_PER_SM = 2     # the split count aims at this many CTAs on each SM

@@ -31,9 +31,15 @@
 //     16 bytes, as its k columns t and t+4 of E/2 k-steps) and the output
 //     columns of P.V (thread g reads hd = 8W*c + W*g .. +W of a V row), so
 //     a thread stores 2W consecutive output columns;
-//   - row pads make those loads conflict-free: Q and K rows a multiple of
-//     128 bytes plus 64 (two rows per 8-lane phase), V rows plus 16 bytes
+//   - row pads make those loads conflict-free: Q and K rows of 128 bytes
+//     or more padded to end at 64 mod 128 bytes (two rows per 8-lane
+//     phase; bf16 at hd=96 already does, 192 bytes), V rows plus 16 bytes
 //     (rows 2t, 2t+1 and column groups g of a phase land in distinct banks);
+//   - W divides the hd/8 output n tiles (hd=96 in bf16: 4 of 12, so a
+//     thread stores 8 bf16, 16 bytes); a tile row is copied by a power of
+//     two of threads (hd=96: 32 in fp32, 16 in bf16, for its 24 or 12
+//     16-byte chunks; the rest idle), so every thread's copies advance by
+//     one constant stride;
 //   - K and V tiles of 64 keys arrive by cp.async (16 bytes, zero-filled
 //     past the end of the keys), staggered: V_t lands while S_t = Q K_t^T
 //     and the softmax run, K_{t+1} while P V_t runs.  Two barriers a tile,
@@ -73,6 +79,10 @@ constexpr int BQ = 64;         // query rows per CTA, 16 a warp
 constexpr int BK = 64;         // keys per tile
 
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
+// the largest w' <= w, halving from w, that divides n
+__host__ __device__ constexpr int divisor_at_most(int w, int n) {
+  return n % w == 0 ? w : divisor_at_most(w / 2, n);
+}
 
 template <typename T, int HD>
 struct Cfg {
@@ -83,9 +93,13 @@ struct Cfg {
   // its k columns t and t+4 of E / 2 k-steps
   static constexpr int E = cmin(16 / kSize, HD / 4);
   static constexpr int NT = HD / 8;  // n tiles of the output
-  // P.V: a thread loads W consecutive output columns of a V row
-  static constexpr int W = cmin(16 / kSize, NT);
-  static constexpr int LDQK = HD + (HD * kSize >= 128 ? 64 / kSize : 0);
+  // P.V: a thread loads W consecutive output columns of a V row (up to 16
+  // bytes), W dividing NT
+  static constexpr int W = divisor_at_most(cmin(16 / kSize, NT), NT);
+  // Q and K rows of 128 bytes or more end at 64 mod 128 bytes
+  static constexpr int kRowBytes = HD * kSize;
+  static constexpr int LDQK =
+      HD + (kRowBytes >= 128 ? (192 - kRowBytes % 128) % 128 / kSize : 0);
   static constexpr int LDV = HD + 16 / kSize;
   static constexpr int kBytes = ((BQ + BK) * LDQK + BK * LDV) * kSize;
   static_assert(E % 2 == 0 && HD % (4 * E) == 0 && NT % W == 0, "tiling");
@@ -143,18 +157,22 @@ __device__ __forceinline__ void stg(T* p, const float (&f)[N]) {
 }
 
 // Start copying rows [row0, row0 + ROWS) of one head into shared memory
-// (row stride `ld` elements), zero-filling rows at or past `limit`.  A
-// thread copies one 16-byte column chunk of every (kThreads / CH)-th row,
-// so its addresses advance by a constant stride.
+// (row stride `ld` elements), zero-filling rows at or past `limit`.  LANES
+// threads (a power of two) share a row; a thread copies one 16-byte column
+// chunk of every (kThreads / LANES)-th row, so its addresses advance by a
+// constant stride, and a row's threads past its CH chunks copy nothing.
 template <typename T, int HD, int ROWS>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           int row_stride, int row0,
                                           int limit) {
   constexpr int PER = 16 / static_cast<int>(sizeof(T));
   constexpr int CH = HD / PER;         // 16-byte chunks per row
-  constexpr int RPI = kThreads / CH;   // rows per pass
-  static_assert(kThreads % CH == 0 && ROWS % RPI == 0, "whole passes");
-  const int r = threadIdx.x / CH, c = threadIdx.x % CH;
+  constexpr int LANES = pow2_at_least(CH);
+  constexpr int RPI = kThreads / LANES;  // rows per pass
+  static_assert(HD % PER == 0 && kThreads % LANES == 0 && ROWS % RPI == 0,
+                "whole passes");
+  const int r = threadIdx.x / LANES, c = threadIdx.x % LANES;
+  if (c >= CH) return;
   const T* s = src + (int64_t)(row0 + r) * row_stride + c * PER;
   T* d = dst + r * ld + c * PER;
 #pragma unroll
@@ -398,6 +416,7 @@ cudaError_t dispatch_hd(const Args& a, int hd) {
     case 16: return launch<T, 16>(a);
     case 32: return launch<T, 32>(a);
     case 64: return launch<T, 64>(a);
+    case 96: return launch<T, 96>(a);
     case 128: return launch<T, 128>(a);
     default: return cudaErrorInvalidValue;
   }

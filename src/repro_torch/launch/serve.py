@@ -44,8 +44,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(cfg, params, prompt: torch.Tensor, max_new_tokens: int):
-    """Prefill `prompt` [B, S], then decode greedily.
+def generate(cfg, params, prompt: torch.Tensor, max_new_tokens: int,
+             extra: dict | None = None):
+    """Prefill `prompt` [B, S], then decode greedily.  `extra` holds the
+    prefill's other inputs, as `io.make_batch` makes them: whisper's
+    "frames", phi-3-vision's "patches".
 
     Returns (tokens [B, T], logits [B, T, V], prefill_s, decode_s) with
     T = max_new_tokens: token t is the argmax of logits t, which come from
@@ -59,7 +62,7 @@ def generate(cfg, params, prompt: torch.Tensor, max_new_tokens: int):
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        cache, logits = prefill(params, {"tokens": prompt})
+        cache, logits = prefill(params, {**(extra or {}), "tokens": prompt})
         _sync(device)
         t_prefill = time.perf_counter() - t0
 
@@ -81,14 +84,20 @@ def serve(run: ServeRun, log=print) -> dict:
     """Prefill a random prompt, then decode greedily.
 
     Params come from `api.init_params` seeded with `run.seed`, the prompt
-    from `io.make_batch` seeded with `run.seed + 1`, both on `run.device`.
+    (with whisper's stub frames or phi-3-vision's stub patches) from
+    `io.make_batch` seeded with `run.seed + 1`, both on `run.device`.
     Returns prefill_s, decode_tok_per_s and tokens [B, max_new_tokens]
-    (numpy) as the reference does, plus the prompt and the logits the
-    tokens were taken from (prefill's, then each decode step's), stacked
-    [B, max_new_tokens, V] on the device.
+    (numpy) as the reference does, plus the prompt, its other inputs
+    (`extra`: {} or the stub frames or patches) and the logits the tokens
+    were taken from (prefill's, then each decode step's), stacked
+    [B, max_new_tokens, V] on the device.  phi-3-vision's prompt must be at
+    least n_patches long, as the reference's splice assumes (ValueError).
     """
     device = api.resolve_device(run.device)
     cfg = configs.get(run.arch, reduced=run.reduced)
+    if run.prompt_len < cfg.n_patches:
+        raise ValueError(f"{run.arch}: the prompt ({run.prompt_len} tokens) "
+                         f"must hold the {cfg.n_patches} image patches")
     cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
                               compute_dtype=torch.float32,
                               kv_dtype=torch.float32,
@@ -104,15 +113,16 @@ def serve(run: ServeRun, log=print) -> dict:
     cell = io.smoke_cell("prefill", b=run.batch, s=run.prompt_len)
     batch = io.make_batch(cfg, cell, gen.manual_seed(run.seed + 1))
 
+    prompt = batch.pop("tokens")
     tokens, logits, t_prefill, t_decode = generate(
-        cfg, params, batch["tokens"], run.max_new_tokens)
+        cfg, params, prompt, run.max_new_tokens, extra=batch)
     toks_per_s = (run.batch * (run.max_new_tokens - 1)) / max(t_decode, 1e-9)
     log(f"[serve] {run.arch} on {device} ({run.attn_impl}): prefill "
         f"{t_prefill * 1e3:.1f} ms, decode {toks_per_s:.1f} tok/s "
         f"(batch={run.batch})")
     return {"prefill_s": t_prefill, "decode_tok_per_s": toks_per_s,
-            "tokens": tokens.cpu().numpy(), "prompt": batch["tokens"],
-            "logits": logits}
+            "tokens": tokens.cpu().numpy(), "prompt": prompt,
+            "extra": batch, "logits": logits}
 
 
 @dataclasses.dataclass

@@ -6,8 +6,8 @@ shapes and initializers (every param has `cfg.param_dtype`).  Block params carry
 axis (one entry per repeat of `layer_plan()`), as in the reference, so a
 converted reference param tree maps across leaf for leaf.
 
-The dense, SSM, MoE and hybrid families are ported.  The other families
-raise NotImplementedError naming the ROADMAP item that ports them.
+All six families of the reference are ported: dense, SSM, MoE, hybrid,
+encoder-decoder (whisper) and VLM (phi-3-vision).
 """
 from __future__ import annotations
 
@@ -18,21 +18,6 @@ from typing import Any
 import torch
 
 from repro_torch.models import layers, mamba as mamba_mod
-
-PORTED_FAMILIES = ("dense", "ssm", "moe", "hybrid")
-# family -> the ROADMAP item that ports it
-_FAMILY_ITEM = {
-    "encdec": "A11 (encoder-decoder)",
-    "vlm": "A11 (VLM)",
-}
-
-
-def require_ported(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet: ROADMAP "
-            f"{_FAMILY_ITEM.get(cfg.family, cfg.family)}")
-
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  CUDA is never silently replaced
@@ -140,12 +125,13 @@ class ModelConfig:
 
         Each sub-layer is (mixer, ffn) with mixer in {attn, mamba} and ffn
         in {dense, moe, none}.  Homogeneous families repeat a one-sub-layer
-        plan n_layers times; the MoE family a plan of `moe.every`
-        sub-layers; the hybrid (jamba) super-blocks of `attn_every`
-        sub-layers, attention in the middle one, MoE on the odd ones.
+        plan n_layers times (the VLM takes the dense plan; the
+        encoder-decoder's is its decoder's); the MoE family a plan of
+        `moe.every` sub-layers; the hybrid (jamba) super-blocks of
+        `attn_every` sub-layers, attention in the middle one, MoE on the
+        odd ones.
         """
-        require_ported(self)
-        if self.family == "dense":
+        if self.family in ("dense", "vlm", "encdec"):
             return self.n_layers, [("attn", "dense")]
         if self.family == "moe":
             assert self.moe is not None
@@ -155,7 +141,9 @@ class ModelConfig:
             return self.n_layers // self.moe.every, plan
         if self.family == "ssm":
             return self.n_layers, [("mamba", "none")]
-        assert self.attn_every > 0 and self.moe is not None   # hybrid
+        if self.family != "hybrid":
+            raise ValueError(f"{self.name}: unknown family {self.family!r}")
+        assert self.attn_every > 0 and self.moe is not None
         period = self.attn_every
         attn_pos = period // 2
         plan = []
@@ -186,7 +174,10 @@ class ParamSpec:
     init: str = "normal"            # normal | zeros | ones | a_log | dt_bias
 
 
-def _attn_table(cfg: ModelConfig) -> dict:
+def _attn_table(cfg: ModelConfig, cross: bool = False) -> dict:
+    """Self attention, or with `cross` the decoder's cross attention over
+    the encoder states (no qk-norm there).  Biases on q, v and the output,
+    none on k, as whisper's."""
     hq = cfg.n_heads * cfg.head_dim
     hkv = cfg.n_kv_heads * cfg.head_dim
     d = cfg.d_model
@@ -200,7 +191,7 @@ def _attn_table(cfg: ModelConfig) -> dict:
         t["bq"] = ParamSpec((hq,), "zeros")
         t["bv"] = ParamSpec((hkv,), "zeros")
         t["bo"] = ParamSpec((d,), "zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         t["q_norm"] = ParamSpec((cfg.head_dim,), "ones")
         t["k_norm"] = ParamSpec((cfg.head_dim,), "ones")
     return t
@@ -266,12 +257,16 @@ def _stack_specs(tree: dict, n: int) -> dict:
             for k, v in tree.items()}
 
 
-def _sublayer_table(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
+def _sublayer_table(cfg: ModelConfig, mixer: str, ffn: str,
+                    cross: bool = False) -> dict:
     t = dict(_norm_table(cfg, "ln1"))
     if mixer == "attn":
         t["attn"] = _attn_table(cfg)
     else:
         t["mamba"] = _mamba_table(cfg)
+    if cross:
+        t.update(_norm_table(cfg, "lnx"))
+        t["xattn"] = _attn_table(cfg, cross=True)
     if ffn != "none":
         t.update(_norm_table(cfg, "ln2"))
         if ffn == "dense":
@@ -283,7 +278,8 @@ def _sublayer_table(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
 
 def param_table(cfg: ModelConfig) -> dict:
     n_groups, plan = cfg.layer_plan()
-    group = {f"sub{i}": _sublayer_table(cfg, mixer, ffn)
+    cross = cfg.family == "encdec"
+    group = {f"sub{i}": _sublayer_table(cfg, mixer, ffn, cross)
              for i, (mixer, ffn) in enumerate(plan)}
     table = {
         "embed": {"tok": ParamSpec((cfg.padded_vocab, cfg.d_model))},
@@ -292,6 +288,11 @@ def param_table(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         table["lm_head"] = ParamSpec((cfg.d_model, cfg.padded_vocab))
+    if cross:   # the encoder stack and the decoder's learned positions
+        enc = {"sub0": _sublayer_table(cfg, "attn", "dense")}
+        table["enc_blocks"] = _stack_specs(enc, cfg.n_enc_layers)
+        table["enc_final"] = _norm_table(cfg, "lnf")
+        table["dec_pos"] = ParamSpec((cfg.max_pos, cfg.d_model))
     return table
 
 

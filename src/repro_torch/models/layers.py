@@ -1,4 +1,4 @@
-"""Core layers of the dense decoder, single device.
+"""Core layers of the model zoo (norms, attention, MLPs), single device.
 
 Mirrors `repro/models/layers.py`: params are nested dicts of tensors and
 every function takes (params, inputs, config-ish kwargs).  The reference's
@@ -7,9 +7,13 @@ cache attention waits for ROADMAP A13.
 
 Attention paths:
   - cache-free causal:  _sdpa | _chunked_sdpa (q-block loop) | flash kernel
+  - cache-free non-causal (whisper's encoder): _sdpa | _chunked_sdpa
   - prefill (s > 1):    _sdpa / _chunked_sdpa over the fresh k/v, as the
     reference does (it never sends prefill through the flash kernel)
   - decode (s == 1):    _local_cached_attention | decode kernel
+  - cross (whisper):    _sdpa / _chunked_sdpa, unmasked, over the encoder's
+    k/v on every device, as the reference's `_sublayer` sends cross
+    attention through "xla" whatever the config's attn_impl
 `attn_impl="xla"` selects the plain torch math, `"pallas"` the Hopper
 kernels; the names are the reference's, so configs map one-to-one.
 """
@@ -192,18 +196,29 @@ def attention(params, x, spec: AttentionSpec, positions,
     - full self-attention: kv_cache is None.
     - prefill: kv_cache given, s > 1 -> attention over fresh k/v + cache fill.
     - decode: kv_cache given, s == 1 -> cached attention.
+    - cross attention: cross_kv = (k, v) [B, Se, Hkv, hd] from the encoder
+      states; every query sees every encoder position.
     `cache_pos` is a Python int.  The cache dict {"k", "v"} of
     [B, S_max, Hkv, hd] tensors is written in place and returned.
     """
-    if cross_kv is not None:
-        raise NotImplementedError("cross attention: ROADMAP A11")
     if mesh is not None:
         raise NotImplementedError("sharded attention: ROADMAP A13")
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, spec, positions)
-    if kv_cache is None:
+    if cross_kv is not None:
+        q = torch.einsum("bsd,dh->bsh", x, params["wq"].to(x.dtype))
+        if spec.bias:
+            q = q + params["bq"].to(x.dtype)
+        q = q.reshape(b, s, spec.n_heads, spec.head_dim)
+        k, v = (t.to(q.dtype) for t in cross_kv)
+        if spec.attn_chunk and s > spec.attn_chunk:
+            out = _chunked_sdpa(q, k, v, spec, 0, causal=False)
+        else:
+            out = _sdpa(q, k, v, spec, None)
+        new_cache = None
+    elif kv_cache is None:
+        q, k, v = _project_qkv(params, x, spec, positions)
         if attn_impl == "pallas" and spec.causal:
             out = fa_ops.flash_attention(q, k, v, causal=True,
                                          scale=spec.scale)
@@ -214,6 +229,7 @@ def attention(params, x, spec: AttentionSpec, positions,
             out = _sdpa(q, k, v, spec, mask)
         new_cache = None
     else:
+        q, k, v = _project_qkv(params, x, spec, positions)
         # in-place cache write, where the reference returns a new cache
         # from dynamic_update_slice; copy_ casts to the cache dtype
         k_cache, v_cache = kv_cache["k"], kv_cache["v"]
@@ -245,6 +261,18 @@ def causal_mask(sq: int, sk: int, offset: int = 0,
     qi = torch.arange(sq, device=device)[:, None] + offset
     ki = torch.arange(sk, device=device)[None, :]
     return (ki <= qi)[None, None, None]
+
+
+def cross_kv_from_encoder(params, enc: torch.Tensor, spec: AttentionSpec):
+    """The cross attention's (k, v) [B, Se, Hkv, hd] from the encoder
+    states [B, Se, D]: v carries its bias, k has none."""
+    b, se, _ = enc.shape
+    k = torch.einsum("bsd,dh->bsh", enc, params["wk"].to(enc.dtype))
+    v = torch.einsum("bsd,dh->bsh", enc, params["wv"].to(enc.dtype))
+    if spec.bias:
+        v = v + params["bv"].to(enc.dtype)
+    return (k.reshape(b, se, spec.n_kv_heads, spec.head_dim),
+            v.reshape(b, se, spec.n_kv_heads, spec.head_dim))
 
 
 # ---------------------------------------------------------------------------

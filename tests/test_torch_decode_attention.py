@@ -1,6 +1,7 @@
 """Port decode attention (CPU: its plain version) against the reference's
 Pallas kernel in interpret mode and its oracle, on the reference's
-DECODE_CASES with inputs made by numpy from a seed."""
+DECODE_CASES and on MHA (g = 1) cases at whisper's head dim 64 and
+phi-3-vision's 96, with inputs made by numpy from a seed."""
 from __future__ import annotations
 
 import numpy as np
@@ -16,6 +17,16 @@ from repro_torch.kernels.decode_attention import ops  # noqa: E402
 from test_kernels import DECODE_CASES, _tol  # noqa: E402
 
 TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+# MHA (hq == hkv, g = 1) at hd = 64 (whisper) and hd = 96 (phi-3-vision),
+# lengths that fill the cache, leave it ragged against the block, and 1
+MHA_CASES = [
+    (2, 160, 5, 5, 64, 150, jnp.float32, 128),
+    (2, 256, 4, 4, 96, 200, jnp.float32, 128),
+    (1, 192, 6, 6, 96, 192, jnp.float32, 128),
+    (2, 256, 4, 4, 96, 1, jnp.float32, 128),
+    (2, 256, 4, 4, 96, 131, jnp.bfloat16, 128),
+    (2, 160, 5, 5, 64, 7, jnp.bfloat16, 128),
+]
 
 
 def _inputs(b, s, hq, hkv, hd, seed=1):
@@ -25,7 +36,8 @@ def _inputs(b, s, hq, hkv, hd, seed=1):
             rng.standard_normal((b, s, hkv, hd), np.float32))
 
 
-@pytest.mark.parametrize("b,s,hq,hkv,hd,length,dtype,bk", DECODE_CASES)
+@pytest.mark.parametrize("b,s,hq,hkv,hd,length,dtype,bk",
+                         DECODE_CASES + MHA_CASES)
 def test_decode_attention_matches_reference(b, s, hq, hkv, hd, length, dtype,
                                             bk):
     arrays = _inputs(b, s, hq, hkv, hd)
@@ -99,6 +111,7 @@ def test_split_count_depends_on_pairs_and_sms_only(b, hkv, sms, want):
 
 @pytest.mark.parametrize("shape_q,shape_kv,length,match", [
     ((1, 4, 48), (1, 8, 2, 48), 8, "head_dim 48"),
+    ((1, 4, 80), (1, 8, 4, 80), 8, "head_dim 80"),
     ((1, 18, 32), (1, 8, 2, 32), 8, "at most 8 per kv head"),
     ((1, 6, 32), (1, 8, 4, 32), 8, "multiple of kv heads"),
     ((1, 4, 32), (1, 8, 2, 32), 0, r"length 0 outside \[1, 8\]"),
@@ -120,6 +133,12 @@ def test_decode_kernel_input_checks_accept_the_cache_in_place():
     q = torch.zeros(4, 24, 128)
     k = torch.zeros(4, 1056, 8, 128)
     ops._check_cuda_inputs(q, k, k, 1040)
+    # phi-3-vision's MHA cache at head dim 96, fp32 and bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        ops._check_cuda_inputs(torch.zeros(4, 32, 96, dtype=dtype),
+                               torch.zeros(4, 1056, 32, 96, dtype=dtype),
+                               torch.zeros(4, 1056, 32, 96, dtype=dtype),
+                               1040)
     with pytest.raises(ValueError, match="contiguous"):
         ops._check_cuda_inputs(q.transpose(1, 2).contiguous()
                                .transpose(1, 2), k, k, 1040)

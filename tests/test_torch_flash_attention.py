@@ -1,6 +1,7 @@
 """Port flash attention (CPU: its plain version) against the reference's
 Pallas kernel in interpret mode and its oracle, on the reference's
-FLASH_CASES with inputs made by numpy from a seed."""
+FLASH_CASES and on MHA cases at phi-3-vision's head dim 96 (and whisper's
+64), with inputs made by numpy from a seed."""
 from __future__ import annotations
 
 import numpy as np
@@ -16,6 +17,15 @@ from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from test_kernels import FLASH_CASES, _tol  # noqa: E402
 
 TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+# MHA at hd = 96 (phi-3-vision) and 64 (whisper, 5 heads): a whole tile,
+# rows ragged against it, fewer rows than one 16-row mma tile, and bf16
+HD96_CASES = [
+    (1, 128, 128, 4, 4, 96, jnp.float32, 64, 64),
+    (2, 100, 100, 2, 2, 96, jnp.float32, 64, 64),
+    (1, 7, 7, 4, 4, 96, jnp.float32, 16, 16),
+    (1, 96, 96, 5, 5, 64, jnp.float32, 64, 64),
+    (1, 128, 128, 4, 4, 96, jnp.bfloat16, 64, 64),
+]
 
 
 def _inputs(b, sq, sk, hq, hkv, hd, seed=0):
@@ -25,7 +35,8 @@ def _inputs(b, sq, sk, hq, hkv, hd, seed=0):
             rng.standard_normal((b, sk, hkv, hd), np.float32))
 
 
-@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,dtype,bq,bk", FLASH_CASES)
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,dtype,bq,bk",
+                         FLASH_CASES + HD96_CASES)
 def test_flash_attention_matches_reference(b, sq, sk, hq, hkv, hd, dtype, bq,
                                            bk):
     arrays = _inputs(b, sq, sk, hq, hkv, hd)
@@ -62,6 +73,34 @@ def test_flash_attention_rejects_other_devices():
     k = torch.empty((1, 16, 2, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("shape_q,shape_kv,dtype,match", [
+    ((1, 16, 4, 80), (1, 16, 4, 80), torch.float32, "head_dim 80"),
+    ((1, 16, 4, 48), (1, 16, 2, 48), torch.bfloat16, "head_dim 48"),
+    ((1, 16, 6, 32), (1, 16, 4, 32), torch.float32, "not a multiple"),
+    ((2, 16, 4, 32), (1, 16, 2, 32), torch.float32, "do not match q"),
+])
+def test_flash_kernel_input_checks(shape_q, shape_kv, dtype, match):
+    """What a CUDA launch would refuse is refused before it: a head dim
+    that no kernel instance has, a grouping that does not divide, shapes
+    that do not match.  The checks do not depend on the device."""
+    q = torch.zeros(shape_q, dtype=dtype)
+    k = torch.zeros(shape_kv, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        ops._check_cuda_inputs(q, k, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,hd", [(32, 32, 96), (20, 20, 64),
+                                       (24, 8, 128)])
+def test_flash_kernel_input_checks_accept_the_model_shapes(hq, hkv, hd,
+                                                           dtype):
+    """phi-3-vision's (MHA, hd 96), whisper's (MHA, hd 64) and llama's
+    forward shapes pass, in the model's [B, S, H, hd] layout."""
+    q = torch.zeros(4, 64, hq, hd, dtype=dtype)
+    k = torch.zeros(4, 64, hkv, hd, dtype=dtype)
+    ops._check_cuda_inputs(q, k, k)
 
 
 # The CUDA kernel's arithmetic, emulated in plain torch: its products run on
@@ -119,8 +158,8 @@ def _emulated_kernel(q, k, v, qk_passes, pv_passes):
     return out.transpose(1, 2)
 
 
-FP32_CASES = [c for c in FLASH_CASES if c[6] == jnp.float32]
-BF16_CASES = [c for c in FLASH_CASES if c[6] == jnp.bfloat16]
+FP32_CASES = [c for c in FLASH_CASES + HD96_CASES if c[6] == jnp.float32]
+BF16_CASES = [c for c in FLASH_CASES + HD96_CASES if c[6] == jnp.bfloat16]
 
 
 def _oracle(arrays, dtype):

@@ -155,20 +155,21 @@ def test_serve_on_cpu_returns_tokens(impl):
     assert out["prefill_s"] > 0 and out["decode_tok_per_s"] > 0
 
 
-def test_unported_families_raise():
-    """The encoder-decoder and VLM families wait for ROADMAP A11; the MoE
-    and hybrid families are ported."""
-    for arch in ("whisper-large-v3", "phi-3-vision-4.2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            configs.get(arch)
-    for arch in ("jamba-v0.1-52b", "qwen3-moe-30b-a3b",
-                 "phi3.5-moe-42b-a6.6b"):
-        assert configs.get(arch).family in ("moe", "hybrid")
+def test_every_arch_resolves_and_builds_a_param_table():
+    """All ten architectures resolve through `configs.get` (full and
+    reduced) and build a param table of the reference's size; an unknown
+    arch or family still raises."""
+    assert len(configs.ARCH_IDS) == 10
+    for arch in configs.ARCH_IDS:
+        for reduced in (False, True):
+            cfg = configs.get(arch, reduced)
+            assert cfg.name.startswith(arch)
+            assert api.param_table(cfg)
+        assert api.param_count(configs.get(arch)) == \
+            ref_api.param_count(ref_configs.get(arch))
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get("gpt-2")
     cfg = dataclasses.replace(configs.get("llama3.2-3b", reduced=True),
-                              family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+                              family="retnet")
+    with pytest.raises(ValueError, match="unknown family 'retnet'"):
         api.param_table(cfg)
-    cfg = dataclasses.replace(configs.get("llama3.2-3b", reduced=True),
-                              family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        cfg.layer_plan()
