@@ -105,7 +105,27 @@ the final `{"ok": true, ...}` line from printing:
      hidden state within 1e-3); prefill and decode-step times and a
      profile of one prefill, whisper's naming its encoder's and its cross
      attention's shares.
-Each of phases 3-6 and 8-12 sets every launch count to 0 just before it
+ 13. training (run after 12, before 7): (a) llama3.2-3b at full width and
+     depth (3.21 B params, fp32 masters, bf16 compute) through
+     `launch/train.py::train()`: B=2, S=512, 8 steps, lr 1e-3, warm-up 5;
+     every loss finite, no kernel launched (training runs the plain
+     routes, as the reference's), step 0 and the mean over the steps
+     lower the loss of the batch each step took, and step 0's loss within
+     2e-2 relative of an fp32-compute forward of the same weights; peak
+     memory, step ms (CUDA events, median of steps 2-7), tokens/s, the
+     share of the bf16 dense peak, and a torch.profiler breakdown of one
+     step (matrix products, softmax, AdamW, the casts, the stacked
+     gradients' assembly); (b) its full width cut to 2 layers (595 M
+     params), fp32 compute, B=1, S=128, on the card and on the CPU from
+     the same weights: one train step (loss and grad norm within 1e-5,
+     every grad leaf within 1e-4 relative L2), the card's AdamW fed the
+     CPU's grads (1e-6), `quantize_int8` bit for bit, remat "full" and
+     "dots" (grads within 1e-6 of "none"'s, each one's peak), and a 7.1 GB
+     checkpoint saved without blocking across an in-place step, restored
+     bit for bit, its step's loss reproduced (1e-5), with write and read
+     GB/s; (c) the driver's control flow on the card at the reduced
+     configs: the reference's four test_train_* runs and assertions.
+Each of phases 3-6 and 8-13 sets every launch count to 0 just before it
 drives a path and reads the counts just after.  Phase 7 (run last) also
 times the decode kernel at jamba's, qwen3-moe's, whisper's and
 phi-3-vision's heads, the flash kernel at their forward shapes and the
@@ -1444,6 +1464,594 @@ def _flash_lm_shape(smoke) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training on the card
+# ---------------------------------------------------------------------------
+
+# (a) llama3.2-3b at full width and depth through `train()`; (b) its full
+# width cut to TRAIN_CUT layers, held against the CPU; (c) the driver's
+# control flow at the reduced configs, as the reference's test_train_*
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 512, 8, 1e-3
+TRAIN_CUT, CUT_B, CUT_S = 2, 1, 128
+# the kernels of a cuBLAS / CUTLASS matrix product, by name
+GEMM_NAMES = re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.I)
+# the autograd nodes that put the per-group views back into a stacked
+# gradient (`unbind`'s backward is one stack; `v[i]`'s a zero fill each)
+STACK_NODES = ("UnbindBackward0", "StackBackward0", "SelectBackward0")
+
+
+# the reference's losses over phase 13 (a)'s batch and schedule (B=2,
+# S=512, 8 steps, lr 1e-3, warm-up 5, cosine over 10) at llama3.2-3b's
+# full width and vocabulary cut to TRAIN_CUT layers, fp32 compute, from
+# `numpy_params(cfg, 0)`: the reference's unsharded step on the CPU,
+# printed by tests/train_full_width_witness.py
+WITNESS_LOSSES = (11.774210929870605, 11.770812034606934, 11.776093482971191,
+                  11.763729095458984, 11.908243179321289, 11.817910194396973,
+                  11.83788013458252, 12.063973426818848)
+
+
+class _StepTimer:
+    """While `patch()` is open, every train step that
+    `steps.build_train_step` builds is timed with CUDA events; after each
+    step the loss of the batch it took is computed again on the updated
+    params (outside the timed window), and the last call's (step, state,
+    batch) is kept, so one more step can be profiled after the driver
+    returns."""
+
+    def __init__(self):
+        self.events: list = []
+        self.descent: list = []     # (loss before the step, after it)
+        self.last = None
+
+    @contextlib.contextmanager
+    def patch(self):
+        from repro_torch import tree
+        from repro_torch.launch import steps
+        from repro_torch.models import stack
+        real = steps.build_train_step
+
+        def build(cfg, *args, **kwargs):
+            step = real(cfg, *args, **kwargs)
+            loss_fn = stack.build_loss_fn(cfg)
+
+            def timed(state, batch):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(state, batch)
+                end.record()
+                self.events.append((start, end))
+                with torch.no_grad():
+                    params = tree.tree_map(
+                        lambda p: steps._compute_cast(cfg, p),
+                        out[0]["params"])
+                    self.descent.append((float(out[1]["loss"]),
+                                         float(loss_fn(params, batch))))
+                self.last = (step, out[0], batch)
+                return out
+            return timed
+        steps.build_train_step = build
+        try:
+            yield self
+        finally:
+            steps.build_train_step = real
+
+    def ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def _part(smoke, name, fn) -> None:
+    """One part of a phase: a failure is reported and the next part
+    runs; the part's tensors are freed after it."""
+    print(f"-- {name}", flush=True)
+    try:
+        fn()
+    except Exception:  # reported; the other parts still run
+        traceback.print_exc()
+        smoke.check(f"{name}: raised", False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(smoke: Smoke) -> None:
+    res = smoke.results.setdefault("train", {})
+    _part(smoke, "13a train full width and depth",
+          lambda: _train_full(smoke, res))
+    _part(smoke, f"13b train cut to {TRAIN_CUT} layers vs the CPU",
+          lambda: _train_cut(smoke, res))
+    _part(smoke, f"13b train cut to {TRAIN_CUT} layers: the reference's "
+          "losses", lambda: _train_witness(smoke, res))
+    _part(smoke, "13c train driver control flow",
+          lambda: _train_driver(smoke, res))
+
+
+def _train_flops(cfg, b, s) -> float:
+    """FLOP of one train step: 6 per param and token for the products
+    (the tied embedding counted once, as the unembedding), and the plain
+    attention's scores and weighted sum over the whole S x S square
+    (masked, not skipped), forward and backward."""
+    from repro_torch.models import api
+    attn = 4 * b * s * s * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    return 6 * api.param_count(cfg) * b * s + 3 * attn
+
+
+def _train_full(smoke, res) -> None:
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.launch.train import TrainRun, train
+    from repro_torch.models import api, stack
+    run = TrainRun(arch=LLAMA, reduced=False, steps=TRAIN_STEPS,
+                   global_batch=TRAIN_B, seq_len=TRAIN_S, lr=TRAIN_LR,
+                   log_every=1, device=DEVICE)
+    timer = _StepTimer()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with timer.patch():
+        hist = train(run)
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [loss for _, loss in hist["loss"]]
+    ms = timer.ms()
+    cfg = configs.get(LLAMA)
+    step_ms = statistics.median(ms[2:])
+    tokens = TRAIN_B * TRAIN_S
+    flops = _train_flops(cfg, TRAIN_B, TRAIN_S)
+    out = res["full"] = {
+        "arch": LLAMA, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": api.param_count(cfg), "batch": TRAIN_B, "seq": TRAIN_S,
+        "steps": TRAIN_STEPS, "losses": losses, "step_ms": ms,
+        "step_ms_median_2_7": step_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3), "train_wall_s": wall,
+        "flop_per_step": flops,
+        "achieved_tflop_per_s": flops / (step_ms / 1e3) / 1e12,
+        "bf16_peak_share": flops / (step_ms / 1e3) / BF16_FLOP_PER_S,
+        "max_memory_allocated_gb": peak, "launches": launches}
+    print(f"   full width: losses {[f'{x:.4f}' for x in losses]}, step "
+          f"{step_ms:.1f} ms (median of steps 2-7), "
+          f"{out['tokens_per_s']:.0f} tokens/s, "
+          f"{out['achieved_tflop_per_s']:.1f} TFLOP/s = "
+          f"{out['bf16_peak_share']:.1%} of the bf16 dense peak, "
+          f"max_memory_allocated {peak:.2f} GB", flush=True)
+    smoke.check("train full: 8 losses, all finite",
+                len(losses) == TRAIN_STEPS
+                and all(np.isfinite(x) for x in losses), str(len(losses)))
+    # each step takes a fresh batch, and at this width, vocabulary, batch
+    # and schedule a fresh batch's loss rises above ln V over the 8 steps:
+    # the reference's does too (part 13b holds the card's steps at
+    # TRAIN_CUT layers to the reference's losses).  So the learning check
+    # is on the batch each step took: the first step (Adam's first step is
+    # its gradient's sign) and the mean over the steps lower it
+    before, after = zip(*timer.descent)
+    out["descent"] = {"loss_before_step": before, "loss_after_step": after}
+    print(f"   each batch's loss after its step: "
+          f"{[f'{b:.4f}->{a:.4f}' for b, a in timer.descent]}; "
+          f"loss[0] {losses[0]:.4f}, loss[7] {losses[-1]:.4f}", flush=True)
+    smoke.check("train full: step 0 lowers its batch's loss",
+                after[0] < before[0], f"{before[0]:.4f} -> {after[0]:.4f}")
+    smoke.check("train full: the steps lower their batches' loss on the "
+                "mean", np.mean(after) < np.mean(before),
+                f"{np.mean(before):.4f} -> {np.mean(after):.4f}")
+    _check_launches(smoke, "train full", launches,
+                    {name: 0 for name in launches})
+    step, state, batch = timer.last
+    out["profile"] = _train_profile(lambda: step(state, batch), state)
+    print(f"   step profile: {json.dumps(out['profile'])}", flush=True)
+    timer.last = step = state = batch = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # step 0's loss against forwards of the same weights (the driver's
+    # init, drawn again from its seed) and batch under no_grad, in fp32
+    # compute and in the config's bf16.  The train step's loss is its bf16
+    # forward's; the fp32 forward is another computation, whose per-token
+    # losses differ from the bf16 ones by the spread printed here, so two
+    # equal means are the rounding of the mean to fp32, not one
+    # computation twice.  The driver's next batches show the same
+    # spread, and means that differ by more than the rounding.
+    params = api.init_params(cfg, torch.Generator(device=DEVICE)
+                             .manual_seed(run.seed))
+    source = SyntheticSource(DataConfig(cfg.vocab, TRAIN_S, TRAIN_B,
+                                        seed=run.seed))
+    ulp = float(torch.finfo(torch.float32).eps) * 8     # at 8 <= x < 16
+    fwd = []
+    with torch.no_grad():
+        for i in range(4):
+            tokens = torch.from_numpy(source.batch(i)).to(DEVICE)
+            (l32, nll32), (lbf, nllbf) = (_token_losses(
+                params, dataclasses.replace(cfg, compute_dtype=dtype,
+                                            kv_dtype=dtype, loss_chunk=0),
+                tokens) for dtype in (torch.float32, cfg.compute_dtype))
+            diff = nllbf - nll32
+            fwd.append({"batch": i, "fp32": l32, "bf16": lbf,
+                        "mean_diff_ulps": (lbf - l32) / ulp,
+                        "token_diff_mean": float(diff.mean()),
+                        "token_diff_std": float(diff.std()),
+                        "token_diff_max_abs": float(diff.abs().max())})
+            print(f"   batch {i} no-grad forwards: fp32 {l32!r}, bf16 "
+                  f"{lbf!r} ({fwd[-1]['mean_diff_ulps']:+.0f} ulps); "
+                  f"per-token bf16 - fp32: mean {float(diff.mean()):.3e}, "
+                  f"std {float(diff.std()):.3e}, max |.| "
+                  f"{float(diff.abs().max()):.3e}", flush=True)
+    del params
+    rel = abs(losses[0] - fwd[0]["fp32"]) / abs(fwd[0]["fp32"])
+    rel_bf = abs(losses[0] - fwd[0]["bf16"]) / abs(fwd[0]["bf16"])
+    out["forwards"] = fwd
+    out["step0_loss_vs_forwards"] = {"rel_fp32": rel, "rel_bf16": rel_bf}
+    smoke.check("train full: step-0 loss vs an fp32 forward (2e-2 rel)",
+                rel <= 2e-2, f"{losses[0]:.5f} vs {fwd[0]['fp32']:.5f}, "
+                f"rel {rel:.3g}")
+    smoke.check("train full: step-0 loss is the bf16 forward's (1e-6 rel)",
+                rel_bf <= 1e-6, f"{losses[0]!r} vs {fwd[0]['bf16']!r}")
+    smoke.check("train full: the fp32 and bf16 forwards differ per token",
+                all(f["token_diff_max_abs"] > 0 for f in fwd),
+                str([f"{f['token_diff_std']:.2e}" for f in fwd]))
+
+
+def _token_losses(params, cfg, tokens) -> tuple[float, torch.Tensor]:
+    """The loss of a forward, and its per-token losses (fp64)."""
+    from repro_torch.models import stack
+    h, aux = stack.forward(params, cfg, {"tokens": tokens})
+    loss = float(stack.loss_from_hidden(params, cfg, h, tokens, aux))
+    logits = stack.unembed(params, cfg, h[:, :-1])
+    del h
+    gold = logits.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    return loss, (torch.logsumexp(logits, -1) - gold).double()
+
+
+def _train_profile(fn, state) -> dict:
+    """One train step under torch.profiler: device busy ms, and the device
+    ms of the matrix products (by kernel name), the attention softmax, the
+    optimizer (`adamw.update`), the param casts (forward: `_compute_cast`;
+    backward: the ToCopyBackward0 nodes whose input is a param's shape)
+    and the stacked gradients' assembly (`unbind`/`stack`/`select`
+    backward); the rest is "other"."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    real_update, real_cast = adamw.update, steps._compute_cast
+
+    def ranged(name, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return run
+    shapes = {tuple(t.shape) for t in _leaves(state["params"])}
+    torch.cuda.synchronize()
+    adamw.update = ranged("train.adamw", real_update)
+    steps._compute_cast = ranged("train.cast", real_cast)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        adamw.update, steps._compute_cast = real_update, real_cast
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total
+               and not e.key.startswith("train.")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy:
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+    stage = {"gemm": sum(e.self_device_time_total for e in kernels
+                         if GEMM_NAMES.search(e.key)) / 1e3,
+             "softmax": sum(e.self_device_time_total for e in kernels
+                            if "softmax" in e.key.lower()) / 1e3,
+             "adamw": 0.0, "cast forward": 0.0, "cast backward": 0.0,
+             "stack/select backward": 0.0}
+    for e in prof.events():
+        if e.device_type.name != "CPU":
+            continue
+        ms = e.device_time_total / 1e3
+        if e.name == "train.adamw":
+            stage["adamw"] += ms
+        elif e.name == "train.cast":
+            stage["cast forward"] += ms
+        elif e.name == "ToCopyBackward0" and any(
+                tuple(s) in shapes for s in (e.input_shapes or [])):
+            stage["cast backward"] += ms
+        elif e.name in STACK_NODES:
+            stage["stack/select backward"] += ms
+    stage["other"] = busy - sum(stage.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / wall_ms),
+            "kernel_calls": sum(e.count for e in kernels),
+            "stage_ms": stage,
+            "stage_share": {k: v / busy for k, v in stage.items()},
+            "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _close(got, want, tol) -> tuple[float, bool]:
+    """Max abs error, and whether it is within tol relative to the leaf's
+    scale (tol x max |want|) and tol elementwise."""
+    got, want = got.double().cpu(), want.double().cpu()
+    diff = (got - want).abs()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    return float(diff.max()) if diff.numel() else 0.0, bool(
+        torch.all(diff <= tol * scale + tol * want.abs()))
+
+
+def _spied_step(step, state, batch) -> tuple:
+    """(metrics, grads): one train step, and the gradients it handed the
+    optimizer (copied)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.optim import adamw
+    real = adamw.update
+    seen = []
+
+    def spy(opt_cfg, grads, opt_state, params):
+        seen.append(tree_mod.tree_map(lambda g: g.clone(), grads))
+        return real(opt_cfg, grads, opt_state, params)
+    adamw.update = spy
+    try:
+        _, metrics = step(state, batch)
+    finally:
+        adamw.update = real
+    return {k: float(v) for k, v in metrics.items()}, seen[0]
+
+
+def _clone(tree):
+    from repro_torch import tree as tree_mod
+    return tree_mod.tree_map(lambda t: t.clone(), tree)
+
+
+def _train_cut(smoke, res) -> None:
+    """llama3.2-3b at full width cut to TRAIN_CUT layers, fp32 compute: one
+    train step, AdamW, int8 quantisation, remat and a checkpoint on the
+    card, each held against the CPU (or itself) on the same inputs."""
+    import dataclasses
+    import shutil
+    from repro_torch import configs, tree as tree_mod
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.launch import steps
+    from repro_torch.models import api, stack
+    from repro_torch.optim import adamw, grad_compress as gc
+    cfg = dataclasses.replace(
+        configs.get(LLAMA), n_layers=TRAIN_CUT, compute_dtype=torch.float32,
+        kv_dtype=torch.float32, loss_chunk=0, remat="none")
+    out = res["cut"] = {"n_layers": TRAIN_CUT, "d_model": cfg.d_model,
+                        "params": api.param_count(cfg), "batch": CUT_B,
+                        "seq": CUT_S}
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=10)
+    step = steps.build_train_step(cfg, opt_cfg)
+    tokens = torch.from_numpy(SyntheticSource(DataConfig(
+        cfg.vocab, CUT_S, CUT_B, seed=0)).batch(0))
+    # the same weights on both devices: drawn on the CPU, then copied
+    cpu = steps.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+    card = tree_mod.tree_map(lambda t: t.to(DEVICE, copy=True), cpu)
+    card0 = _clone(card)
+    t0 = time.perf_counter()
+    m_card, g_card = _spied_step(step, card, {"tokens": tokens.to(DEVICE)})
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_cpu, g_cpu = _spied_step(step, cpu, {"tokens": tokens})
+    out["step_s"] = {"card": t_card, "cpu": time.perf_counter() - t0}
+    for k in ("loss", "grad_norm"):
+        rel = abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+        out[f"{k}_rel"] = rel
+        smoke.check(f"train cut: {k} card vs CPU (1e-5 rel)", rel <= 1e-5,
+                    f"{m_card[k]:.7g} vs {m_cpu[k]:.7g}, rel {rel:.3g}")
+    worst = max((_rel_l2(a, b), "/".join(p)) for (p, a), b in zip(
+        tree_mod.leaves_with_paths(g_card), tree_mod.leaves(g_cpu)))
+    out["grad_rel_l2_max"] = worst[0]
+    smoke.check("train cut: every grad leaf card vs CPU (1e-4 rel L2)",
+                worst[0] <= 1e-4, f"worst {worst[0]:.3g} at {worst[1]}")
+
+    # the card's AdamW fed the CPU's grads, from the same pre-step state
+    g_cpu_on_card = tree_mod.tree_map(lambda g: g.to(DEVICE), g_cpu)
+    adamw.update(opt_cfg, g_cpu_on_card, card0["opt"], card0["params"])
+    errs = []
+    for name, a, b in (("params", card0["params"], cpu["params"]),
+                       ("m", card0["opt"]["m"], cpu["opt"]["m"]),
+                       ("v", card0["opt"]["v"], cpu["opt"]["v"])):
+        for x, y in zip(tree_mod.leaves(a), tree_mod.leaves(b)):
+            errs.append((*_close(x, y, 1e-6), name))
+    out["adamw_max_abs_err"] = max(e[0] for e in errs)
+    smoke.check("train cut: card AdamW on the CPU's grads (1e-6)",
+                all(e[1] for e in errs),
+                f"max abs err {out['adamw_max_abs_err']:.3g}")
+    del card0, g_cpu_on_card
+
+    # int8 quantisation of the same fp32 grads: bit for bit
+    same = True
+    for g in tree_mod.leaves(g_cpu):
+        q, s = gc.quantize_int8(g)
+        qc, sc = gc.quantize_int8(g.to(DEVICE))
+        same &= torch.equal(q, qc.cpu()) and torch.equal(
+            s.view(torch.int32), sc.cpu().view(torch.int32))
+    smoke.check("train cut: quantize_int8 card == CPU, bit for bit", same)
+    del g_cpu, cpu
+
+    # remat: the same grads with "full" and "dots", and each one's peak
+    tokens_card = {"tokens": tokens.to(DEVICE)}
+    grads, peaks = {}, {}
+    for remat in ("none", "full", "dots"):
+        params = tree_mod.tree_map(
+            lambda t: t.detach().clone().requires_grad_(), card["params"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = stack.build_loss_fn(dataclasses.replace(cfg, remat=remat))(
+            params, tokens_card)
+        leaves = tree_mod.leaves(params)
+        grads[remat] = torch.autograd.grad(loss, leaves)
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del params, loss, leaves
+    worst = max(_rel_l2(a, b) for r in ("full", "dots")
+                for a, b in zip(grads[r], grads["none"]))
+    out["remat"] = {"grad_rel_l2_max": worst,
+                    "peak_gb_above_state": peaks}
+    smoke.check("train cut: remat full/dots grads vs none (1e-6 rel L2)",
+                worst <= 1e-6, f"worst {worst:.3g}, peaks above the state "
+                f"{ {k: round(v, 3) for k, v in peaks.items()} } GB")
+    del grads
+
+    # a checkpoint: non-blocking save, an in-place step, then wait()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(tmp, keep_last=1)
+        before = _clone(card)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree_mod.leaves(card))
+        batch1 = {"tokens": torch.from_numpy(SyntheticSource(DataConfig(
+            cfg.vocab, CUT_S, CUT_B, seed=0)).batch(1)).to(DEVICE)}
+        t0 = time.perf_counter()
+        mgr.save(1, card)
+        t_copy = time.perf_counter() - t0
+        _, m_inplace = step(card, batch1)
+        loss_inplace = float(m_inplace["loss"])
+        mgr.wait()
+        t_write = time.perf_counter() - t0
+        del card
+        t0 = time.perf_counter()
+        restored = mgr.restore(1, before)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        exact = all(torch.equal(a, b) for a, b in zip(
+            tree_mod.leaves(restored), tree_mod.leaves(before)))
+        smoke.check("train cut: restore == the pre-step state, bit for bit",
+                    exact)
+        _, m_again = step(restored, batch1)
+        rel = abs(float(m_again["loss"]) - loss_inplace) / abs(loss_inplace)
+        smoke.check("train cut: the step from the restored state (1e-5)",
+                    rel <= 1e-5, f"rel {rel:.3g}")
+        disk = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                   if f.is_file())
+        out["checkpoint"] = {
+            "state_gb": nbytes / 1e9, "disk_gb": disk / 1e9,
+            "host_copy_s": t_copy, "save_to_published_s": t_write,
+            "write_gb_per_s": disk / 1e9 / t_write,
+            "restore_s": t_read, "read_gb_per_s": disk / 1e9 / t_read,
+            "loss_rel": rel}
+        print(f"   checkpoint: {disk / 1e9:.2f} GB on disk, write "
+              f"{out['checkpoint']['write_gb_per_s']:.2f} GB/s (host copy "
+              f"{t_copy:.2f} s), read {out['checkpoint']['read_gb_per_s']:.2f}"
+              f" GB/s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def numpy_params(cfg, seed: int) -> dict:
+    """CPU params drawn with numpy, the same on machines with other torch
+    releases (torch's CPU `trunc_normal_` draws differently from one
+    release to the next): `api.init_params`' fan-in scales, with a
+    standard normal clipped at +-2 in place of its truncated normal; the
+    leaves it draws no random numbers for are its own."""
+    from repro_torch import tree
+    from repro_torch.models import api
+    rng = np.random.default_rng(seed)
+
+    def leaf(spec):
+        if spec.init != "normal":
+            return api._init_leaf(spec, cfg, torch.Generator())
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        x = rng.standard_normal(spec.shape, dtype=np.float32)
+        np.clip(x, -2.0, 2.0, out=x)
+        x *= min(0.02, (1.0 / max(fan_in, 1)) ** 0.5)
+        return torch.from_numpy(x).to(cfg.param_dtype)
+    return tree.tree_map(leaf, api.param_table(cfg))
+
+
+def _train_witness(smoke, res) -> None:
+    """(a)'s fresh batches' losses rise over its 8 steps; so do the
+    reference's at that width.  At (a)'s batch and schedule, full width
+    cut to TRAIN_CUT layers in fp32, the card's 8 steps give the losses
+    of the reference's step on the CPU (WITNESS_LOSSES) within 1e-4."""
+    import dataclasses
+    from repro_torch import configs, tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(
+        configs.get(LLAMA), n_layers=TRAIN_CUT, compute_dtype=torch.float32,
+        kv_dtype=torch.float32, loss_chunk=0, remat="none")
+    params = tree.tree_map(lambda t: t.to(DEVICE), numpy_params(cfg, 0))
+    state = {"params": params, "opt": adamw.init(params)}
+    step = steps.build_train_step(cfg, adamw.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=5, total_steps=max(TRAIN_STEPS, 10)))
+    source = SyntheticSource(DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=0))
+    losses = []
+    for i in range(TRAIN_STEPS):
+        state, metrics = step(state, {"tokens": torch.from_numpy(
+            source.batch(i)).to(DEVICE)})
+        losses.append(float(metrics["loss"]))
+    want = np.array(WITNESS_LOSSES)
+    rel = float(np.max(np.abs(np.array(losses) - want) / want))
+    res["witness"] = {"losses": losses, "reference": list(WITNESS_LOSSES),
+                      "max_rel": rel}
+    print(f"   {TRAIN_CUT} layers, fp32: losses "
+          f"{[f'{x:.6f}' for x in losses]}; loss[7] - loss[0] "
+          f"{losses[-1] - losses[0]:+.6f} (reference "
+          f"{want[-1] - want[0]:+.6f}), max rel {rel:.3g}", flush=True)
+    smoke.check("train cut: 8 steps' losses vs the reference's (1e-4 rel)",
+                rel <= 1e-4, f"{rel:.3g}")
+
+
+def _train_driver(smoke, res) -> None:
+    """The reference's four test_train_* runs, on the card."""
+    from repro_torch.launch.train import TrainRun, train
+    def quiet(*_):
+        pass
+    out = res["driver"] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        runs = {
+            "loss decreases": TrainRun(arch=LLAMA, steps=25, global_batch=8,
+                                       seq_len=32, lr=3e-3, log_every=100,
+                                       device=DEVICE),
+            "fault at 12": TrainRun(arch=LLAMA, steps=20, global_batch=4,
+                                    seq_len=32, ckpt_dir=f"{tmp}/fault",
+                                    ckpt_every=5, fail_at_step=12,
+                                    log_every=100, device=DEVICE),
+            "elastic at 8": TrainRun(arch="granite-3-8b", steps=16,
+                                     global_batch=4, seq_len=32,
+                                     ckpt_dir=f"{tmp}/elastic",
+                                     elastic_switch_step=8, log_every=100,
+                                     device=DEVICE),
+            "grad compress": TrainRun(arch=LLAMA, steps=12, global_batch=4,
+                                      seq_len=32, lr=3e-3,
+                                      grad_compress=True, log_every=100,
+                                      device=DEVICE)}
+        hist = {}
+        for name, run in runs.items():
+            t0 = time.perf_counter()
+            hist[name] = train(run, log=quiet)
+            out[name] = {"wall_s": time.perf_counter() - t0,
+                         **{k: v for k, v in hist[name].items()}}
+    losses = dict(hist["loss decreases"]["loss"])
+    smoke.check("train driver: loss decreases over 25 steps",
+                losses[0] > losses[24], f"{losses[0]:.4f} -> "
+                f"{losses[24]:.4f}")
+    h = hist["fault at 12"]
+    smoke.check("train driver: fault at 12 -> 1 restart, final step 20",
+                h["restarts"] == 1 and h["final_step"] == 20,
+                f"{h['restarts']}, {h['final_step']}")
+    h = hist["elastic at 8"]
+    smoke.check("train driver: elastic switch at 8 -> 1 switch, final 16",
+                h["elastic_switches"] == 1 and h["final_step"] == 16,
+                f"{h['elastic_switches']}, {h['final_step']}")
+    losses = dict(hist["grad compress"]["loss"])
+    smoke.check("train driver: grad compress, loss[11] < loss[0]",
+                losses[11] < losses[0], f"{losses[0]:.4f} -> "
+                f"{losses[11]:.4f}")
+
+
 def time_ms(fn, flush, reps=30, warmup=3) -> float:
     """Median device time of fn() over `reps` runs, CUDA events around each
     run, the L2 cache flushed (a 256 MB write) before each."""
@@ -1808,10 +2416,11 @@ def main() -> int:
                 lambda: phase_encdec_vlm(smoke, WHISPER))
     smoke.phase(f"12 {PHI3V} at full width and depth",
                 lambda: phase_encdec_vlm(smoke, PHI3V))
+    smoke.phase(f"13 train {LLAMA} on the card", lambda: phase_train(smoke))
     smoke.phase("7 times", lambda: phase_times(smoke))
     r = smoke.results
     for key in ("launches", "serve", "forward", "times", "profile",
-                "daemon", "moe_models", "decode_g1", "phases"):
+                "daemon", "moe_models", "decode_g1", "train", "phases"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"total {time.perf_counter() - t0:.1f} s; "

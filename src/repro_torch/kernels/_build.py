@@ -22,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 SOURCES = {
@@ -104,6 +106,21 @@ def load(name: str, bind=None) -> ctypes.CDLL:
                 bind(lib)
             _LIBS[name] = lib
         return lib
+
+
+def require_no_grad(name: str, knob: str, *tensors) -> None:
+    """Raise if autograd would record through the kernel route `name`.
+
+    The kernels are forward only and launched through ctypes, so their
+    outputs carry no `grad_fn`: a caller in grad mode whose inputs require
+    grad would get no gradient from them, and no error.  The reference
+    raises there too (it has no VJP for `pallas_call`), on every device,
+    so this does as well; the plain route (`knob="xla"`) differentiates."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel route has no backward; inputs that require "
+            f"grad need the plain route ({knob}=\"xla\") or torch.no_grad()")
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:

@@ -108,7 +108,10 @@ def _check_cuda_inputs(q, k, v, length: int):
 
 def decode_attention(q, k_cache, v_cache, length: int, *, scale: float):
     """q: [B,Hq,hd]; caches [B,S,Hkv,hd]; length: valid prefix length.
-    Returns [B,Hq,hd] in q's dtype; fp32 accumulation."""
+    Returns [B,Hq,hd] in q's dtype; fp32 accumulation.  Raises under
+    autograd, on every device, as the reference does."""
+    _build.require_no_grad("decode_attention", "attn_impl", q, k_cache,
+                           v_cache)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, length,
                                       scale=scale)

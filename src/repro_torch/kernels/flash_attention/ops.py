@@ -79,7 +79,10 @@ def _check_cuda_inputs(q, k, v):
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None):
     """q: [B,Sq,Hq,hd]; k,v: [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd] in q's dtype.
-    Query i sees keys j <= i; fp32 accumulation."""
+    Query i sees keys j <= i; fp32 accumulation.  Raises under autograd on
+    the kernel route (causal), on every device, as the reference does."""
+    if causal:
+        _build.require_no_grad("flash_attention", "attn_impl", q, k, v)
     if not causal or q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":

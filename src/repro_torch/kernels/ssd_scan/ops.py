@@ -123,7 +123,11 @@ def ssd(x, dt, a, b, c, *, chunk: int = 128, impl: str = "xla",
     """x: [B,L,H,P]; dt: [B,L,H] (post-softplus); a: [H] (negative);
     b, c: [B,L,G,N]; initial_state: [B,H,P,N] or None (zeros).
     Returns (y [B,L,H,P] f32, final_state [B,H,P,N] f32).  Any L: a ragged
-    last chunk is an identity-padded one, as in the reference."""
+    last chunk is an identity-padded one, as in the reference.  The kernel
+    route raises under autograd, on every device, as the reference does."""
+    if impl == "pallas":
+        _build.require_no_grad("ssd", "ssd_impl", x, dt, a, b, c,
+                               initial_state)
     if impl == "xla" or (impl == "pallas" and x.device.type == "cpu"):
         return ssd_plain(x, dt, a, b, c, chunk=chunk,
                          initial_state=initial_state)

@@ -17,9 +17,11 @@ positions of the prompt.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
+from repro_torch import tree as tree_mod
 from repro_torch.models import api, layers, mamba as mamba_mod, moe as moe_mod
 from repro_torch.models.api import ModelConfig
 
@@ -54,6 +56,51 @@ def _index(tree, i: int):
     """The i-th group of a stacked tree (views, no copies)."""
     return {k: (_index(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
+
+
+def _groups(tree) -> list[dict]:
+    """Every group of a stacked tree, as views.  Each leaf is split once
+    with `unbind`, whose backward is one `stack`: taking `v[i]` for every
+    group instead would, under autograd, fill a zero tensor the size of
+    the whole stacked leaf once per group (`select_backward`)."""
+    parts = tree_mod.tree_map(lambda leaf: leaf.unbind(0), tree)
+    n = len(tree_mod.leaves(parts)[0])
+    return [tree_mod.tree_map(lambda p: p[g], parts) for g in range(n)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat="dots": keep the products with no batch dimension (the
+    projections and the MLP), recompute the rest, the attention's and the
+    experts' batched products included; XLA's
+    `dots_with_no_batch_dims_saveable`.  `torch.einsum` runs a product
+    with no batch dimension as a `bmm` over a batch of 1, so such a `bmm`
+    is kept as `mm` is."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    no_batch = op is aten.mm.default or (
+        op is aten.bmm.default and args[0].shape[0] == 1)
+    return (CheckpointPolicy.MUST_SAVE if no_batch
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """fn, or fn under activation checkpointing as `cfg.remat` asks:
+    "full" keeps only its inputs, "dots" also its unbatched products.
+    Without grad mode nothing is kept anyway, so fn runs as it is."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(cfg.remat)
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils import checkpoint as ckpt
+    context_fn = ckpt.noop_context_fn
+    if cfg.remat == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=context_fn)
+    return run
 
 
 def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
@@ -116,21 +163,27 @@ def run_stack(blocks, cfg: ModelConfig, h, positions, *, plan=None,
     cache: matching tree (leading groups axis) or None; written in place.
     enc_out: the encoder's states, for the sub-layers' cross attention.
     causal=False makes self attention non-causal (whisper's encoder).
+    Each group runs under `cfg.remat` (`_remat`), as the reference's scan
+    body does.
     Returns (h, cache, aux), aux summed over every sub-layer of every group.
     """
     if plan is None:
         _, plan = cfg.layer_plan()
-    n_groups = api.flatten(blocks)[0][1].shape[0]
-    aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-    for g in range(n_groups):
-        group = _index(blocks, g)
-        cache_g = None if cache is None else _index(cache, g)
+
+    def body(group, cache_g, h, aux_sum, positions, enc_out):
         for i, item in enumerate(plan):
             sub_cache = None if cache_g is None else cache_g[f"sub{i}"]
             h, aux = _sublayer(group[f"sub{i}"], cfg, item, h, positions,
                                cache=sub_cache, cache_pos=cache_pos,
                                enc_out=enc_out, causal=causal)
             aux_sum = aux_sum + aux
+        return h, aux_sum
+
+    body = _remat(body, cfg)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for g, group in enumerate(_groups(blocks)):
+        cache_g = None if cache is None else _index(cache, g)
+        h, aux_sum = body(group, cache_g, h, aux_sum, positions, enc_out)
     return h, cache, aux_sum
 
 

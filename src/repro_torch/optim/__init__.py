@@ -1,0 +1,1 @@
+"""The optimizer (AdamW) and int8 gradient compression with error feedback."""

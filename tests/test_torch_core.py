@@ -1,6 +1,8 @@
 """The port's FOS policy core against the reference's.
 
-Three holds on `repro_torch.core` and `repro_torch.analysis`:
+Three holds on `repro_torch.core`, `repro_torch.analysis` (the sanitizer
+and schedlint) and the copied training modules (`data/pipeline.py`,
+`ckpt/fault.py`):
 
 1. The copy check: every copied module's AST, docstrings removed, equals
    the reference module's after the package rename `repro.` ->
@@ -10,7 +12,8 @@ Three holds on `repro_torch.core` and `repro_torch.analysis`:
    loaded with the same rename into a fresh module.
 3. The reference's property suites run against the port by the same
    load-and-rename: each suite's tests are collected here as
-   `test_<suite>__<test>`.  `Shell` is bound to a subclass on CPU devices
+   `test_<suite>__<test>` (of `test_fault_and_bus` only the fault tests).
+   `Shell` is bound to a subclass on CPU devices
    (the port's `Shell` raises without CUDA), also for a suite that imports
    it inside a test.
 
@@ -46,10 +49,22 @@ COPIED = ["core/allocator.py", "core/arrivals.py", "core/checkpoint.py",
           "core/scheduler.py", "core/fabric.py", "core/simulator.py",
           "core/daemon.py", "core/__init__.py", "analysis/sanitizer.py",
           "obs/__init__.py", "obs/trace.py", "obs/recorder.py",
-          "obs/export.py"]
+          "obs/export.py", "data/pipeline.py", "ckpt/fault.py",
+          "analysis/walker.py", "analysis/config.py",
+          "analysis/determinism.py", "analysis/memo.py",
+          "analysis/mutation.py", "analysis/__main__.py",
+          "analysis/__init__.py"]
 SUITES = ["test_core_allocator", "test_core_scheduler", "test_fabric",
           "test_checkpoint", "test_preemption", "test_reservation",
-          "test_slo", "test_obs", "test_network", "test_simulator_core"]
+          "test_slo", "test_obs", "test_network", "test_simulator_core",
+          "test_analysis"]
+# suites of which only some tests run unchanged on the port: the fault
+# tests of test_fault_and_bus (its adaptor tests hold the reference's jax
+# bus; tests/test_torch_daemon.py holds the port's)
+PARTIAL_SUITES = {"test_fault_and_bus": (
+    "test_watchdog_fires_on_stall", "test_watchdog_heartbeat_keeps_alive",
+    "test_fault_injector_fires_once", "test_run_with_restarts_straggler_path",
+    "test_run_with_restarts_gives_up")}
 GOLDEN_MODULE = "_port_golden_traces"
 
 
@@ -174,7 +189,7 @@ def _on_cpu(fn):
     return run
 
 
-def _collect(suite: str) -> None:
+def _collect(suite: str, only=None) -> None:
     with pytest.MonkeyPatch.context() as mp:
         # the suite's `from golden_traces import ...` binds the port's copy
         mp.setitem(sys.modules, "golden_traces", golden())
@@ -182,7 +197,8 @@ def _collect(suite: str) -> None:
     if "Shell" in mod.__dict__:
         mod.Shell = CpuShell
     for name, obj in list(vars(mod).items()):
-        if name.startswith("test_") and callable(obj):
+        if name.startswith("test_") and callable(obj) \
+                and (only is None or name in only):
             alias = f"test_{suite.removeprefix('test_')}__" \
                     f"{name.removeprefix('test_')}"
             globals()[alias] = _on_cpu(obj)
@@ -190,3 +206,5 @@ def _collect(suite: str) -> None:
 
 for _suite in SUITES:
     _collect(_suite)
+for _suite, _only in PARTIAL_SUITES.items():
+    _collect(_suite, _only)

@@ -13,6 +13,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import Shell, uniform_shell  # noqa: E402
 from repro_torch.launch.serve import DaemonServeRun, ServeRun, serve, \
     serve_daemon  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch.train import TrainRun, train  # noqa: E402
 
 _IMPORT_ALL = """
 import pkgutil, importlib, sys
@@ -43,7 +45,13 @@ def test_importing_the_port_loads_no_jax_or_reference():
                  "repro_torch.core.scheduler", "repro_torch.analysis.sanitizer",
                  "repro_torch.obs.recorder", "repro_torch.obs.export",
                  "repro_torch.models.moe",
-                 "repro_torch.configs.jamba_v0_1_52b"):
+                 "repro_torch.configs.jamba_v0_1_52b",
+                 # the training stack and schedlint
+                 "repro_torch.optim.adamw", "repro_torch.optim.grad_compress",
+                 "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
+                 "repro_torch.ckpt.fault", "repro_torch.launch.steps",
+                 "repro_torch.launch.train", "repro_torch.analysis.walker",
+                 "repro_torch.analysis.__main__"):
         assert name in names.split(), names
 
 
@@ -69,3 +77,18 @@ def test_serve_daemon_without_cuda_raises_instead_of_using_the_cpu():
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_daemon(DaemonServeRun(), log=lambda _: None)
+
+
+def test_train_without_cuda_raises_instead_of_using_the_cpu():
+    _no_cuda()
+    assert TrainRun().device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(TrainRun(), log=lambda _: None)
+
+
+def test_init_train_state_without_cuda_raises_instead_of_using_the_cpu():
+    _no_cuda()
+    from repro_torch import configs
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        steps.init_train_state(configs.get("llama3.2-3b", reduced=True),
+                               torch.Generator().manual_seed(0))
