@@ -125,7 +125,33 @@ the final `{"ok": true, ...}` line from printing:
      bit for bit, its step's loss reproduced (1e-5), with write and read
      GB/s; (c) the driver's control flow on the card at the reduced
      configs: the reference's four test_train_* runs and assertions.
-Each of phases 3-6 and 8-13 sets every launch count to 0 just before it
+ 14. distribution on the card (after 13, before 7), one spawned rank per
+     GPU of the machine (NCCL; one rank on a one-GPU machine), world size,
+     card and power limit printed: (a) llama3.2-3b at full width and depth
+     served as `serve` serves it over several ranks (`serve_inputs`,
+     `shard_inputs`, `generate(mesh, rules)`) on a (1, world)
+     ("data", "model") mesh under the "serve" rules: on the kernel route
+     exactly 868 decode launches on each rank and every step's logits
+     within 1e-5 of phase 3's; on the plain route (the update-inside body
+     over the sequence-sharded cache) within 1e-3 of the plain unsharded
+     rerun; prefill and decode-step ms (CUDA events) of the unsharded and
+     the sharded path in one process; (b) its full width cut to 2 layers,
+     fp32 compute, B=1, S=128, under the "train" rules on a (world, 1)
+     mesh: one sharded step against the unsharded step (loss and grad norm
+     1e-5, every grad leaf 1e-4 relative L2), both steps' ms, a checkpoint
+     saved under those placements and restored under the elastic flip, the
+     next step's loss equal to the unflipped run's (1e-5); (c)
+     qwen3-moe-30b-a3b at full width cut to 4 layers, the forward on the
+     sharded `moe_ep` (128 / world experts a rank) against the one-device
+     gather route: hidden state 2e-5, the same routes and dropped pairs,
+     exactly 4 flash launches; (d) in this process, the `lm-forward` module
+     at llama3.2-3b's full width through the daemon on a slot over every
+     GPU (a replica and a stream on each, the rows split over them):
+     exactly 28 x 4 x world flash launches and logits equal to phase 8
+     (d)'s on its weights and tokens; (e) the mamba2-780m forward at full
+     width and depth over the mesh: exactly 48 SSD launches, hidden state
+     within 2e-5 of the one-device forward.
+Each of phases 3-6 and 8-14 sets every launch count to 0 just before it
 drives a path and reads the counts just after.  Phase 7 (run last) also
 times the decode kernel at jamba's, qwen3-moe's, whisper's and
 phi-3-vision's heads, the flash kernel at their forward shapes and the
@@ -137,6 +163,7 @@ It imports nothing of jax or of the reference package `repro`.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -648,6 +675,8 @@ def phase_serve(smoke: Smoke, arch: str) -> None:
     smoke.results.setdefault("launches", {})[f"serve {arch}"] = launches
     _check_launches(smoke, f"serve {arch}", launches, want)
     tokens, logits = torch.from_numpy(out["tokens"]), out["logits"]
+    if arch == LLAMA:
+        _KEPT["phase3_logits"] = logits.cpu()
     cfg = _full_cfg(arch, "xla")
     smoke.check(f"serve {arch}: tokens shape and range",
                 tuple(tokens.shape) == (BATCH, NEW)
@@ -1356,6 +1385,8 @@ def _lm_forward_full(smoke, slot, mandel_args, sobel_args) -> dict:
         (pl,) = d._placements.values()
     finally:
         d.shutdown()
+    _KEPT.update(lm_host_weights=host, lm_tokens=tokens,
+                 lm_logits=[o.cpu() for o in outs])
     want = {"decode_attention": 0, "flash_attention": 28 * (3 + 1),
             "ssd_scan": 0}
     smoke.results.setdefault("launches", {})["daemon lm-forward-full"] = \
@@ -1508,6 +1539,7 @@ class _StepTimer:
         from repro_torch import tree
         from repro_torch.launch import steps
         from repro_torch.models import stack
+        from repro_torch.sharding import partition
         real = steps.build_train_step
 
         def build(cfg, *args, **kwargs):
@@ -1522,11 +1554,14 @@ class _StepTimer:
                 end.record()
                 self.events.append((start, end))
                 with torch.no_grad():
+                    # the driver's state and batch are DTensors over its
+                    # one rank: their whole tensors, without a copy
                     params = tree.tree_map(
-                        lambda p: steps._compute_cast(cfg, p),
+                        lambda p: steps._compute_cast(cfg, partition.full(p)),
                         out[0]["params"])
+                    whole = {k: partition.full(v) for k, v in batch.items()}
                     self.descent.append((float(out[1]["loss"]),
-                                         float(loss_fn(params, batch))))
+                                         float(loss_fn(params, whole))))
                 self.last = (step, out[0], batch)
                 return out
             return timed
@@ -2052,6 +2087,455 @@ def _train_driver(smoke, res) -> None:
                 f"{losses[11]:.4f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: distribution on the card
+# ---------------------------------------------------------------------------
+
+# what earlier phases keep for phase 14 to hold its runs to: phase 3's
+# llama logits, phase 8 (d)'s lm-forward host weights, tokens and logits
+_KEPT: dict = {}
+MOE_CUT = 4          # qwen3-moe-30b-a3b's layers in phase 14 (c)
+MOE_SEEDS = (1, 2)   # (c)'s prompts
+
+
+def _events_ms(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _serve_step_times(prefill, decode, params, batch, put) -> dict:
+    """Prefill ms (CUDA events, median of 3 after one warm-up) and the
+    median decode-step ms over a served run's 31 steps, of one path."""
+    from repro_torch.sharding import partition
+    with torch.inference_mode():
+        prefill(params, batch)
+        pre = statistics.median(
+            _events_ms(lambda: prefill(params, batch)) for _ in range(3))
+        cache, logits = prefill(params, batch)
+        tok = partition.full(logits).argmax(-1)[:, None].to(torch.int32)
+        steps = []
+        for i in range(NEW - 1):
+            out = {}
+
+            def one():
+                out["r"] = decode(params, cache, put(tok), PROMPT + i)
+            steps.append(_events_ms(one))
+            cache, nxt, _ = out["r"]
+            tok = partition.full(nxt)[:, None]
+    return {"prefill_ms": pre, "decode_step_ms": statistics.median(steps[1:])}
+
+
+def _dist_serve(rank, world, tmp) -> dict:
+    """(a) llama3.2-3b at full width and depth served over the mesh under
+    the "serve" rules, the kernel route and the plain update-inside body,
+    and the times of both paths in this process."""
+    from repro_torch.launch import mesh as mesh_mod, steps
+    from repro_torch.launch.serve import (ServeRun, generate, serve_inputs,
+                                          shard_inputs)
+    from repro_torch.models import api, io, stack
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.sharding import partition
+    out = {}
+    mesh = mesh_mod.make_mesh((1, world), ("data", "model"))
+    rules = partition.make_rules("serve")
+
+    def served(run):
+        # what `serve` runs when launched over several ranks, here on
+        # this phase's mesh at any world size
+        cfg, params, prompt, extra = serve_inputs(run, DEVICE)
+        pd, prompt_d, extra_d = shard_inputs(cfg, params, prompt, extra,
+                                             mesh, rules)
+        got = generate(cfg, pd, prompt_d, NEW, extra=extra_d, mesh=mesh,
+                       rules=rules)
+        return params, prompt, extra, got
+    _reset_launches()
+    run = ServeRun(arch=LLAMA, reduced=False, batch=BATCH, prompt_len=PROMPT,
+                   max_new_tokens=NEW, device=DEVICE, attn_impl="pallas")
+    params, _, _, (_, logits, prefill_s, decode_s) = served(run)
+    out["launches_pallas"] = _read_launches()
+    phase3 = torch.load(Path(tmp) / "phase3_logits.pt")
+    logits = logits.cpu()
+    out["pallas_vs_phase3_max_abs"] = float((logits - phase3).abs().max())
+    out["pallas_vs_phase3_ok"] = bool(torch.allclose(logits, phase3,
+                                                     atol=1e-5, rtol=1e-5))
+    out["pallas_wall"] = {"prefill_s": prefill_s,
+                          "decode_tok_per_s": BATCH * (NEW - 1) / decode_s}
+    del logits, params
+    # the plain route: the update-inside body (1056 rows over the
+    # sequence shards), against the plain unsharded rerun on its tokens
+    _reset_launches()
+    params, prompt, extra, (tokens, logits, _, _) = served(
+        dataclasses.replace(run, attn_impl="xla"))
+    out["launches_xla"] = _read_launches()
+    cfg = _full_cfg(LLAMA, "xla")
+    plain = _teacher_forced(cfg, params, prompt, tokens, extra)
+    out["xla_vs_plain_max_abs"] = float((logits - plain).abs().max())
+    out["xla_vs_plain_ok"] = bool(torch.allclose(logits, plain,
+                                                 atol=1e-3, rtol=1e-3))
+    del logits, plain, params
+    # CUDA-event times of the unsharded and the sharded path, here
+    cfg = _full_cfg(LLAMA, "pallas")
+    params = _params(cfg, run.seed)
+    batch = io.make_batch(cfg, io.smoke_cell("prefill", BATCH, PROMPT),
+                          torch.Generator(device=DEVICE).manual_seed(1))
+    cell = ShapeCell("serve", PROMPT + NEW, BATCH, "prefill")
+    put_b = lambda t: partition.distribute(  # noqa: E731
+        t, mesh, partition.to_placements(("batch", None), rules, mesh))
+    times = {"unsharded": _serve_step_times(
+        stack.build_prefill_fn(cfg, PROMPT + NEW), stack.build_decode_fn(cfg),
+        params, batch, lambda t: t)}
+    times["sharded"] = _serve_step_times(
+        steps.build_prefill_step(cfg, cell, mesh, rules),
+        steps.build_decode_step(cfg, mesh, rules),
+        partition.distribute_tree(params, api.param_specs(cfg), mesh, rules),
+        {"tokens": put_b(batch["tokens"])}, put_b)
+    out["times"] = times
+    return out
+
+
+def _dist_train(rank, world, tmp) -> dict:
+    """(b) llama3.2-3b at full width cut to TRAIN_CUT layers, fp32
+    compute: one sharded train step under the "train" rules against the
+    unsharded step from the same state and batch; then a checkpoint
+    saved under these placements, restored under the elastic flip
+    (`embed` -> None), and the next step from it against the unflipped
+    run's."""
+    from repro_torch import configs, tree as tree_mod
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.launch import mesh as mesh_mod, steps
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import partition
+    cfg = dataclasses.replace(
+        configs.get(LLAMA), n_layers=TRAIN_CUT, compute_dtype=torch.float32,
+        kv_dtype=torch.float32, loss_chunk=0, remat="none")
+    b = max(CUT_B, world)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=10)
+    source = SyntheticSource(DataConfig(cfg.vocab, CUT_S, b, seed=0))
+    tokens = [torch.from_numpy(source.batch(i)).to(DEVICE) for i in (0, 1)]
+    state = steps.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                   DEVICE)
+    mesh = mesh_mod.make_mesh((world, 1), ("data", "model"))
+    rules = partition.make_rules("train")
+    flipped = partition.make_rules("train", overrides={"embed": None})
+    put = lambda r, t: partition.distribute_tree(  # noqa: E731
+        {"tokens": t}, {"tokens": ("batch", None)}, mesh, r)
+    sharded = steps.shard_train_state(_clone(state), cfg, mesh, rules)
+    one = steps.build_train_step(cfg, opt_cfg)
+    step = steps.build_train_step(cfg, opt_cfg, mesh, rules)
+    out = {"n_layers": TRAIN_CUT, "batch": b, "seq": CUT_S}
+    m1, g1 = _spied_step(one, state, {"tokens": tokens[0]})
+    m2, g2 = _spied_step(step, sharded, put(rules, tokens[0]))
+    for k in ("loss", "grad_norm"):
+        out[f"{k}_rel"] = abs(m2[k] - m1[k]) / abs(m1[k])
+    out["grad_rel_l2_max"] = max(
+        _rel_l2(partition.full(a), c) for a, c in zip(
+            tree_mod.leaves(g2), tree_mod.leaves(g1)))
+    del g1, g2
+    # the step's time, both paths, from these states (CUDA events)
+    out["step_ms"] = {
+        "unsharded": _events_ms(lambda: one(state, {"tokens": tokens[1]})),
+        "sharded": _events_ms(lambda: step(sharded,
+                                           put(rules, tokens[1])))}
+    # a checkpoint under these placements, restored under the flip
+    mgr = CheckpointManager(Path(tmp) / "ckpt", keep_last=1)
+    mgr.save(2, sharded, blocking=True)
+    _, m_a = step(sharded, put(rules, tokens[0]))
+    del sharded, state
+    restored = mgr.restore(2, steps.abstract_train_state(cfg), DEVICE, mesh,
+                           partition.tree_placements(
+                               steps.train_state_axis_specs(cfg), flipped,
+                               mesh))
+    _, m_b = steps.build_train_step(cfg, opt_cfg, mesh, flipped)(
+        restored, put(flipped, tokens[0]))
+    out["elastic_loss"] = [float(m_a["loss"]), float(m_b["loss"])]
+    out["elastic_loss_rel"] = abs(float(m_b["loss"]) - float(m_a["loss"])) \
+        / abs(float(m_a["loss"]))
+    return out
+
+
+def _dropped(top_i, cap: int, n_experts: int) -> set:
+    """The (token, expert) pairs past their expert's capacity, queue order
+    token-major, as both MoE routes drop them (a token's own order of its
+    top k, which fp32 noise can swap, moves none of them)."""
+    t, k = top_i.shape
+    flat = top_i.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat, n_experts)
+    pos = (torch.cumsum(onehot, 0) * onehot).sum(-1) - 1
+    return {(int(i) // k, int(flat[i]))
+            for i in (pos >= cap).nonzero().flatten()}
+
+
+def _dist_moe(rank, world, tmp) -> dict:
+    """(c) qwen3-moe-30b-a3b at full width cut to MOE_CUT layers: the
+    forward on the sharded `moe_ep` (E / world experts a rank) against
+    the one-device gather route, on the prompts of MOE_SEEDS (the
+    launches counted on the first).  The two routes' combines add in
+    another atomic order, and a router whose k-th and (k+1)-th
+    probabilities tie within that noise may choose otherwise: as phase
+    10's plain rerun, the sharded run is teacher-forced on the one-device
+    run's experts where its own top-k set differs at a gap below TIE_GAP
+    (`_Routes`), and a difference at a larger gap fails.  The dropped
+    pairs are compared on the routes each run used."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import api, io, moe, stack
+    from repro_torch.sharding import partition
+    cfg = dataclasses.replace(_full_cfg(QWEN_MOE, "pallas"), n_layers=MOE_CUT)
+    params = _params(cfg)
+    mesh = mesh_mod.make_mesh((1, world), ("data", "model"))
+    rules = partition.make_rules("serve")
+    pd = partition.distribute_tree(params, api.param_specs(cfg), mesh, rules)
+    spec = stack.moe_spec(cfg)
+    cap = moe._capacity(BATCH * PROMPT, spec)     # a rank's tokens: all
+    out = {"n_layers": MOE_CUT,
+           "experts_per_rank": cfg.moe.n_experts // world,
+           "hidden_max_abs": [], "routes": [], "dropped_pairs": [],
+           "same_drops": [], "drops_order_free": [], "hidden_ok": True}
+    for seed in MOE_SEEDS:
+        routes = _Routes()
+        batch = io.make_batch(cfg, io.smoke_cell("prefill", BATCH, PROMPT),
+                              torch.Generator(device=DEVICE).manual_seed(seed))
+        with torch.inference_mode():
+            with routes.record("one"):
+                h1, _ = stack.forward(params, cfg, batch)
+            bd = partition.distribute_tree(
+                batch, {"tokens": ("batch", None)}, mesh, rules)
+            if seed == MOE_SEEDS[0]:
+                _reset_launches()
+            with routes.record("sharded", follow="one"), \
+                    partition.use_rules(rules):
+                h2, _ = stack.forward(pd, cfg, bd, mesh=mesh,
+                                      batch_axes=rules.batch_axes)
+            if seed == MOE_SEEDS[0]:
+                out["launches"] = _read_launches()
+            h2 = partition.full(h2)
+            out["hidden_max_abs"].append(float((h2 - h1).abs().max()))
+            out["hidden_ok"] &= bool(torch.allclose(h2, h1, atol=2e-5,
+                                                    rtol=2e-5))
+        diff = routes.differ("one", "sharded", MOE_CUT)
+        out["routes"].append(diff)
+        one = [_dropped(i, cap, spec.n_experts)
+               for i, _, _ in routes.calls["one"]]
+        used = [torch.where(pinned[:, None], ref, own)
+                for (own, _, pinned), (ref, _, _) in
+                zip(routes.calls["sharded"], routes.calls["one"])]
+        out["same_drops"].append(
+            one == [_dropped(i, cap, spec.n_experts) for i in used])
+        # a token's own order of its k experts moves none of its drops
+        out["drops_order_free"].append(all(
+            _dropped(i.flip(-1), cap, spec.n_experts) == d
+            for (i, _, _), d in zip(routes.calls["one"], one)))
+        out["dropped_pairs"].append([len(d) for d in one])
+    return out
+
+
+def _dist_ssm(rank, world, tmp) -> dict:
+    """(e) mamba2-780m at full width and depth: the forward over the mesh
+    under the "serve" rules (the SSD kernel at every layer) against the
+    one-device forward."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import api, io, stack
+    from repro_torch.sharding import partition
+    cfg = _full_cfg(MAMBA, "pallas")
+    params = _params(cfg)
+    batch = io.make_batch(cfg, io.smoke_cell("prefill", BATCH, PROMPT),
+                          torch.Generator(device=DEVICE).manual_seed(1))
+    mesh = mesh_mod.make_mesh((1, world), ("data", "model"))
+    rules = partition.make_rules("serve")
+    out = {}
+    with torch.inference_mode():
+        h1, _ = stack.forward(params, cfg, batch)
+        pd = partition.distribute_tree(params, api.param_specs(cfg), mesh,
+                                       rules)
+        bd = partition.distribute_tree(batch, {"tokens": ("batch", None)},
+                                       mesh, rules)
+        _reset_launches()
+        with partition.use_rules(rules):
+            h2, _ = stack.forward(pd, cfg, bd, mesh=mesh,
+                                  batch_axes=rules.batch_axes)
+        out["launches"] = _read_launches()
+        h2 = partition.full(h2)
+        out["hidden_max_abs"] = float((h2 - h1).abs().max())
+        out["hidden_ok"] = bool(torch.allclose(h2, h1, atol=2e-5, rtol=2e-5))
+    return out
+
+
+def _dist_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 14: joins the NCCL group, runs (a)-(c) and (e),
+    writes what it measured to `tmp/rank<r>.json`; a failed part is
+    recorded with its traceback and the next part runs."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_mod.init_distributed(DEVICE, store_path=str(Path(tmp) / "store"),
+                              rank=rank, world_size=world)
+    out = {"rank": rank, "world": world}
+    for name, fn in (("serve", _dist_serve), ("train", _dist_train),
+                     ("moe", _dist_moe), ("ssm", _dist_ssm)):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            out[name] = fn(rank, world, tmp)
+        except Exception:  # recorded; the next part still runs
+            out[name] = {"error": traceback.format_exc()}
+        out[name]["wall_s"] = time.perf_counter() - t0
+        out[name]["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"   rank {rank}: {name} {out[name]['wall_s']:.1f} s, "
+              f"max_memory_allocated "
+              f"{out[name]['max_memory_allocated_gb']:.2f} GB", flush=True)
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def phase_distribution(smoke: Smoke) -> None:
+    """Phase 14: (a)-(c) and (e) on one spawned rank per GPU of the
+    machine (NCCL), (d) a FOS slot over every GPU of the card's shell in
+    this process."""
+    import shutil
+    import torch.multiprocessing as mp
+    world = torch.cuda.device_count()
+    print(f"   world size {world}; card: {card_line()}", flush=True)
+    res = smoke.results.setdefault("distribution", {"world": world})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        torch.save(_KEPT["phase3_logits"], Path(tmp) / "phase3_logits.pt")
+        mp.spawn(_dist_rank, args=(world, tmp), nprocs=world, join=True)
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["ranks"] = ranks
+    layers = LAYERS[LLAMA]
+    for r in ranks:
+        tag = f"dist rank {r['rank']}/{world}"
+        for part in ("serve", "train", "moe", "ssm"):
+            if "error" in r[part]:
+                print(r[part]["error"])
+            smoke.check(f"{tag}: {part} ran", "error" not in r[part])
+        a, b, c, e = r["serve"], r["train"], r["moe"], r["ssm"]
+        if "error" not in a:
+            _check_launches(smoke, f"{tag} (a) sharded serve, pallas",
+                            a["launches_pallas"],
+                            {"decode_attention": layers * (NEW - 1),
+                             "flash_attention": 0, "ssd_scan": 0})
+            smoke.check(f"{tag} (a) logits vs phase 3's (1e-5)",
+                        a["pallas_vs_phase3_ok"],
+                        f"max_abs {a['pallas_vs_phase3_max_abs']:.3g}")
+            _check_launches(smoke, f"{tag} (a) sharded serve, xla",
+                            a["launches_xla"],
+                            {"decode_attention": 0, "flash_attention": 0,
+                             "ssd_scan": 0})
+            smoke.check(f"{tag} (a) update-inside body vs the plain "
+                        f"unsharded rerun (1e-3)", a["xla_vs_plain_ok"],
+                        f"max_abs {a['xla_vs_plain_max_abs']:.3g}")
+            print(f"   {tag} (a) times: {a['times']}")
+        if "error" not in b:
+            for k in ("loss", "grad_norm"):
+                smoke.check(f"{tag} (b) sharded step {k} vs unsharded "
+                            f"(1e-5 rel)", b[f"{k}_rel"] <= 1e-5,
+                            f"rel {b[f'{k}_rel']:.3g}")
+            smoke.check(f"{tag} (b) every grad leaf (1e-4 rel L2)",
+                        b["grad_rel_l2_max"] <= 1e-4,
+                        f"worst {b['grad_rel_l2_max']:.3g}")
+            smoke.check(f"{tag} (b) restored under the elastic flip: the "
+                        f"next step's loss (1e-5)",
+                        b["elastic_loss_rel"] <= 1e-5,
+                        f"{b['elastic_loss']}, rel "
+                        f"{b['elastic_loss_rel']:.3g}")
+            print(f"   {tag} (b) step ms: {b['step_ms']}")
+        if "error" not in c:
+            _check_launches(smoke, f"{tag} (c) sharded moe forward",
+                            c["launches"],
+                            {"decode_attention": 0, "flash_attention": MOE_CUT,
+                             "ssd_scan": 0})
+            smoke.check(f"{tag} (c) hidden state vs the one-device gather "
+                        f"route (2e-5), two prompts", c["hidden_ok"],
+                        f"max_abs {c['hidden_max_abs']}")
+            for i, d in enumerate(c["routes"]):
+                print(f"   {tag} (c) prompt {i + 1}: (token, expert) routes "
+                      f"the sharded run chose otherwise per layer "
+                      f"{d['per_sublayer']}, pinned at ties "
+                      f"{d['pinned_per_sublayer']}; first {d['first']}")
+            smoke.check(f"{tag} (c) routes differ only at ties (gap < "
+                        f"{TIE_GAP:g}), the same dropped pairs, two prompts",
+                        all(d["not_ties"] == 0
+                            and d["calls"] == [MOE_CUT, MOE_CUT]
+                            for d in c["routes"])
+                        and all(c["same_drops"])
+                        and all(c["drops_order_free"]),
+                        f"not at ties {[d['not_ties'] for d in c['routes']]}"
+                        f", dropped {c['dropped_pairs']} per layer, same "
+                        f"{c['same_drops']}, order-free "
+                        f"{c['drops_order_free']}")
+        if "error" not in e:
+            _check_launches(smoke, f"{tag} (e) sharded mamba forward",
+                            e["launches"],
+                            {"decode_attention": 0, "flash_attention": 0,
+                             "ssd_scan": LAYERS[MAMBA]})
+            smoke.check(f"{tag} (e) hidden state vs the one-device forward "
+                        f"(2e-5)", e["hidden_ok"],
+                        f"max_abs {e['hidden_max_abs']:.3g}")
+    _part(smoke, "14d a FOS slot over every GPU",
+          lambda: _dist_slot(smoke, res, world))
+
+
+def _dist_slot(smoke, res, world) -> None:
+    """(d) lm-forward at llama3.2-3b's full width through the daemon on a
+    slot over every GPU of the card's shell: phase 8 (d)'s weights and
+    tokens, a weight replica and a stream on each GPU, the rows split over
+    them."""
+    from repro_torch.core import Daemon, ImplAlt, ModuleDescriptor, Shell, \
+        default_registry, uniform_shell
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    reg = default_registry()
+    reg.register_module(ModuleDescriptor(
+        "lm-forward-full", entrypoint="chip_smoke:build_lm_forward_full",
+        impls=(ImplAlt("x1", 1, 20.0),)))
+    shell = Shell(uniform_shell("gpus", (1, world), 1))
+    slot = shell.slots[0]
+    d = Daemon(shell, reg)
+    try:
+        mod = d._module("lm-forward-full")
+        mod.program(slot, 1)
+        mod._host_weights[1] = _KEPT["lm_host_weights"]
+        tokens = _KEPT["lm_tokens"]
+        _reset_launches()
+        t0 = time.perf_counter()
+        h = d.submit("lm", "lm-forward-full", [(t,) for t in tokens])
+        (outs,) = _resolved([h])
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        (pl,) = d._placements.values()
+    finally:
+        d.shutdown()
+    _check_launches(smoke, "14d slot over every GPU: lm-forward", launches,
+                    {"decode_attention": 0,
+                     "flash_attention": 28 * (len(tokens) + 1) * world,
+                     "ssd_scan": 0})
+    same = all(torch.equal(a.cpu(), b) for a, b in
+               zip(outs, _KEPT["lm_logits"]))
+    smoke.check("14d slot over every GPU: logits equal phase 8 (d)'s",
+                same and len(outs) == len(_KEPT["lm_logits"]))
+    smoke.check("14d slot over every GPU: a replica and a stream on each",
+                len(pl.replicas) == world == len(slot.streams)
+                and [str(x.device) for x in (
+                    next(_leaves(r)) for r in pl.replicas)]
+                == [str(dv) for dv in slot.run_devices])
+    res["slot"] = {"gpus": world, "launches": launches, "wall_s": wall,
+                   "equal_to_phase8": same}
+    print(f"   14d: {world} GPU(s), {len(outs)} chunks in {wall:.2f} s, "
+          f"launches {launches}")
+
+
 def time_ms(fn, flush, reps=30, warmup=3) -> float:
     """Median device time of fn() over `reps` runs, CUDA events around each
     run, the L2 cache flushed (a 256 MB write) before each."""
@@ -2390,6 +2874,23 @@ def _kernel_entry(name, source, replaces, smoke, launches, got, want, ms,
             "shape": shape, "bytes": nbytes, "flops": flops}
 
 
+def _sharded_launches(r) -> None:
+    """Each kernel entry's launches on phase 14's sharded paths (rank 0):
+    decode on the sharded serve path, flash in the sharded MoE forward and
+    in lm-forward on the slot over every GPU, the SSD scan in the sharded
+    mamba forward."""
+    dist = r.get("distribution", {})
+    rank0 = (dist.get("ranks") or [{}])[0]
+    paths = {"serve (a)": rank0.get("serve", {}).get("launches_pallas"),
+             "moe forward (c)": rank0.get("moe", {}).get("launches"),
+             "mamba forward (e)": rank0.get("ssm", {}).get("launches"),
+             "slot over every GPU (d)": dist.get("slot", {}).get("launches")}
+    for entry in r["kernels"]:
+        entry["sharded_launches"] = {
+            path: counts.get(entry["name"]) for path, counts in paths.items()
+            if counts and counts.get(entry["name"])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -2417,16 +2918,20 @@ def main() -> int:
     smoke.phase(f"12 {PHI3V} at full width and depth",
                 lambda: phase_encdec_vlm(smoke, PHI3V))
     smoke.phase(f"13 train {LLAMA} on the card", lambda: phase_train(smoke))
+    smoke.phase("14 distribution on the card",
+                lambda: phase_distribution(smoke))
     smoke.phase("7 times", lambda: phase_times(smoke))
     r = smoke.results
     for key in ("launches", "serve", "forward", "times", "profile",
-                "daemon", "moe_models", "decode_g1", "train", "phases"):
+                "daemon", "moe_models", "decode_g1", "train", "distribution",
+                "phases"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"total {time.perf_counter() - t0:.1f} s; "
           f"failures: {smoke.failures or 'none'}")
     if smoke.failures or "kernels" not in r:
         return 1
+    _sharded_launches(r)
     print(json.dumps({"kernels": r["kernels"]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,15 @@ on any congruent slot (module relocation), and adjacent slots in the same
 adjacency group combine to host bigger implementation alternatives
 (PR-region merging).
 
-One NVIDIA GPU is one device.  A slot binds the devices of its rectangle,
-runs on the first of them, and owns a CUDA stream there, so that distinct
-slots run concurrently.  Slots spanning several GPUs wait for ROADMAP A13
-(distribution); the specs, `uniform_shell`, `production_shells` and the
-merge geometry are the reference's.
+One NVIDIA GPU is one device.  A slot binds the devices of its rectangle
+and owns one CUDA stream on each, so that distinct slots run concurrently.
+A module placed on a slot of several devices holds one weight replica on
+each and runs data-parallel over them (`core/module.py`), the reference's
+slot mesh: a `DeviceMesh` cannot span GPUs that one process drives, and
+the daemon is one process.  A CPU shell's entries (`[cpu] * n`) are n
+logical devices, so the same split runs on the CPU.  The specs,
+`uniform_shell`, `production_shells` and the merge geometry are the
+reference's.
 """
 from __future__ import annotations
 
@@ -144,31 +148,25 @@ def production_shells() -> dict[str, ShellSpec]:
 
 class Slot:
     """A slot bound to concrete devices: its rectangle of the shell's
-    device grid, the device it runs on (the first one) and a CUDA stream
-    on that device (None for a CPU slot)."""
+    device grid, every entry of it as a device to run on (`run_devices`,
+    row-major), one CUDA stream on each (None for a CPU entry), and the
+    first device, where outputs are gathered."""
 
     def __init__(self, spec: SlotSpec, devices: np.ndarray,
                  axes: tuple[str, str]):
         self.spec = spec
         self.devices = devices                 # [rows, cols] device array
         self.axes = axes
-        self.device: torch.device = devices.flat[0]
-        self.stream = (torch.cuda.Stream(device=self.device)
-                       if self.device.type == "cuda" else None)
+        self.run_devices: list[torch.device] = list(devices.flat)
+        self.device: torch.device = self.run_devices[0]
+        self.streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
+                        else None for d in self.run_devices]
+        self.stream = self.streams[0]
 
     @property
     def congruence_key(self) -> tuple:
         """Executables relocate freely between slots with equal keys."""
         return (self.spec.shape, self.axes)
-
-    def require_one_device(self) -> None:
-        """Raise unless the slot's modules can run on its one `device`:
-        a rectangle over several distinct GPUs needs a sharded module."""
-        gpus = {d for d in self.devices.flat if d.type == "cuda"}
-        if len(gpus) > 1:
-            raise NotImplementedError(
-                f"{self!r} spans {len(gpus)} GPUs; modules sharded over "
-                f"several devices wait for ROADMAP A13 (distribution)")
 
     def __repr__(self):
         return f"Slot({self.spec.name}, shape={self.spec.shape})"

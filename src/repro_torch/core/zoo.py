@@ -7,7 +7,14 @@ accelerators:
   - matmul     : generic dense kernel (spector-style)
   - lm_forward : an LM forward step from the model zoo
 
-Each builder(slot, footprint) -> ModuleProgram.  None of the first three
+Each builder(slot, footprint) -> ModuleProgram.  As the reference's
+builders read their mesh, these read the slot: its devices
+(`slot.run_devices`) and its data axis, over which every input is split
+by rows (`input_pspecs`, the reference's `P(axis, None)`); weights are
+replicated on every device.  On a slot of several devices mandelbrot,
+matmul and lm-forward compute each row from its own row alone; sobel's
+3x3 stencil needs a row of context from each neighbouring part, which
+`halo=1` gives it.  None of the first three
 is a Pallas kernel in the reference, so each is plain PyTorch here, written
 so that it computes what the reference computes on the CPU:
   - mandelbrot writes its update with `addcmul`: XLA's CPU backend
@@ -30,6 +37,20 @@ import torch
 from repro_torch.core.module import ModuleProgram, TensorSpec
 
 
+def _data_axis(slot) -> str:
+    return "data" if slot is None else slot.axes[0]
+
+
+def _rows(slot, n_dev_rows: int) -> None:
+    """Each device gets an equal share of the rows (the reference's
+    sharding requires it too).  `slot=None` builds for no slot (the
+    program alone)."""
+    n_dev = 1 if slot is None else len(slot.run_devices)
+    if n_dev_rows % n_dev:
+        raise ValueError(f"{n_dev_rows} rows do not split over the slot's "
+                         f"{n_dev} devices")
+
+
 def build_mandelbrot(slot, footprint: int, *, size: int = 256,
                      iters: int = 256) -> ModuleProgram:
     """Compute-bound: escape-time iteration over an image tile."""
@@ -49,12 +70,15 @@ def build_mandelbrot(slot, footprint: int, *, size: int = 256,
         return count
 
     shape = (size, size)
+    _rows(slot, size)
+    spec = (_data_axis(slot), None)
     return ModuleProgram(
         fn=fn,
         abstract_weights=None,
         abstract_inputs=(TensorSpec(shape, torch.float32),
                          TensorSpec(shape, torch.float32)),
         init_weights=None,
+        input_pspecs=(spec, spec),
     )
 
 
@@ -77,10 +101,12 @@ def _sobel(img: torch.Tensor) -> torch.Tensor:
 
 def build_sobel(slot, footprint: int, *, size: int = 1024) -> ModuleProgram:
     """Memory-bound 3x3 stencil over an image tile."""
+    _rows(slot, size)
     return ModuleProgram(
         fn=lambda _, img: _sobel(img), abstract_weights=None,
         abstract_inputs=(TensorSpec((size, size), torch.float32),),
-        init_weights=None)
+        init_weights=None, input_pspecs=((_data_axis(slot), None),),
+        halo=1)
 
 
 def build_matmul(slot, footprint: int, *, m: int = 512, k: int = 512,
@@ -94,12 +120,13 @@ def build_matmul(slot, footprint: int, *, m: int = 512, k: int = 512,
         return {"a": torch.randn((k, n), generator=gen) * 0.02,
                 "b": torch.zeros((n,))}
 
+    _rows(slot, m)
     return ModuleProgram(
         fn=fn,
         abstract_weights={"a": TensorSpec((k, n), torch.float32),
                           "b": TensorSpec((n,), torch.float32)},
         abstract_inputs=(TensorSpec((m, k), torch.float32),),
-        init_weights=init)
+        init_weights=init, input_pspecs=((_data_axis(slot), None),))
 
 
 def build_lm_forward(slot, footprint: int, *, arch: str = "llama3.2-3b",
@@ -117,12 +144,22 @@ def build_lm_forward(slot, footprint: int, *, arch: str = "llama3.2-3b",
 
     def fn(params, tokens):
         h, _ = stack.forward(params, cfg, {"tokens": tokens})
-        return stack.unembed(params, cfg, h[:, -1:])[:, 0]
+        # the unembedding's GEMM always over `batch` rows (a part's rows
+        # padded with zeros): the kernel, and with it each row's order of
+        # summation, follows the row count, so a row's logits are the same
+        # on a slot of any width; on one device it is the one GEMM
+        last = h[:, -1:]
+        pad = batch - last.shape[0]
+        if pad:
+            last = torch.cat([last, last.new_zeros((pad,) + last.shape[1:])])
+        return stack.unembed(params, cfg, last)[:tokens.shape[0], 0]
 
+    _rows(slot, batch)
     return ModuleProgram(
         fn=fn,
         abstract_weights=api.unflatten(
             (path, TensorSpec(spec.shape, cfg.param_dtype))
             for path, spec in api.flatten(api.param_table(cfg))),
         abstract_inputs=(TensorSpec((batch, seq), torch.int32),),
-        init_weights=lambda gen: api.init_params(cfg, gen))
+        init_weights=lambda gen: api.init_params(cfg, gen),
+        input_pspecs=((_data_axis(slot), None),))

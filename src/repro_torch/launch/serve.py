@@ -13,6 +13,14 @@ SLO.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
     PYTHONPATH=src python -m repro_torch.launch.serve --daemon [--contract]
         [--trace-out trace.json]
+    torchrun --nproc-per-node=<gpus> -m repro_torch.launch.serve
+
+Launched by torchrun over more than one rank, `serve` runs SPMD over
+every rank of the world: a (1, n) ("data", "model") mesh under the
+"serve" rules, the params and the prompt as DTensors at their placements
+(each rank holds its tensor-parallel share of the weights), the KV cache
+sequence-sharded over "model" (`steps.build_prefill_step` /
+`build_decode_step`).
 """
 from __future__ import annotations
 
@@ -24,7 +32,10 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.launch import mesh as mesh_mod, steps
 from repro_torch.models import api, io, stack
+from repro_torch.models.api import ShapeCell
+from repro_torch.sharding import partition
 
 
 @dataclasses.dataclass
@@ -45,24 +56,40 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(cfg, params, prompt: torch.Tensor, max_new_tokens: int,
-             extra: dict | None = None):
+             extra: dict | None = None, mesh=None, rules=None):
     """Prefill `prompt` [B, S], then decode greedily.  `extra` holds the
     prefill's other inputs, as `io.make_batch` makes them: whisper's
-    "frames", phi-3-vision's "patches".
+    "frames", phi-3-vision's "patches".  With a mesh and rules, `params`,
+    `prompt` and `extra` are DTensors at their placements and the steps
+    run sharded; the tokens fed back are put over the batch axes.
 
     Returns (tokens [B, T], logits [B, T, V], prefill_s, decode_s) with
-    T = max_new_tokens: token t is the argmax of logits t, which come from
-    the prefill (t = 0) and from decode steps 1..T-1.  Times are wall-clock
-    seconds, each ended by a device synchronise.
+    T = max_new_tokens, whole on every rank: token t is the argmax of
+    logits t, which come from the prefill (t = 0) and from decode steps
+    1..T-1.  Times are wall-clock seconds, each ended by a device
+    synchronise.
     """
-    device = prompt.device
-    s = prompt.shape[1]
-    prefill = stack.build_prefill_fn(cfg, max_len=s + max_new_tokens)
-    decode = stack.build_decode_fn(cfg)
+    device = partition.local(prompt).device
+    b, s = prompt.shape
+    if mesh is None:
+        prefill = stack.build_prefill_fn(cfg, max_len=s + max_new_tokens)
+        decode = stack.build_decode_fn(cfg)
+
+        def put(t):
+            return t
+    else:
+        cell = ShapeCell("serve", s + max_new_tokens, b, "prefill")
+        prefill = steps.build_prefill_step(cfg, cell, mesh, rules)
+        decode = steps.build_decode_step(cfg, mesh, rules)
+
+        def put(t):
+            return partition.distribute(t, mesh, partition.to_placements(
+                ("batch", None), rules, mesh))
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
         cache, logits = prefill(params, {**(extra or {}), "tokens": prompt})
+        logits = partition.full(logits)
         _sync(device)
         t_prefill = time.perf_counter() - t0
 
@@ -70,7 +97,8 @@ def generate(cfg, params, prompt: torch.Tensor, max_new_tokens: int,
         out_tokens, out_logits = [tok[:, 0]], [logits]
         t0 = time.perf_counter()
         for i in range(max_new_tokens - 1):
-            cache, nxt, logits = decode(params, cache, tok, s + i)
+            cache, nxt, logits = decode(params, cache, put(tok), s + i)
+            nxt, logits = partition.full(nxt), partition.full(logits)
             tok = nxt[:, None]
             out_tokens.append(nxt)
             out_logits.append(logits)
@@ -80,20 +108,13 @@ def generate(cfg, params, prompt: torch.Tensor, max_new_tokens: int,
             t_prefill, t_decode)
 
 
-def serve(run: ServeRun, log=print) -> dict:
-    """Prefill a random prompt, then decode greedily.
-
-    Params come from `api.init_params` seeded with `run.seed`, the prompt
-    (with whisper's stub frames or phi-3-vision's stub patches) from
-    `io.make_batch` seeded with `run.seed + 1`, both on `run.device`.
-    Returns prefill_s, decode_tok_per_s and tokens [B, max_new_tokens]
-    (numpy) as the reference does, plus the prompt, its other inputs
-    (`extra`: {} or the stub frames or patches) and the logits the tokens
-    were taken from (prefill's, then each decode step's), stacked
-    [B, max_new_tokens, V] on the device.  phi-3-vision's prompt must be at
-    least n_patches long, as the reference's splice assumes (ValueError).
-    """
-    device = api.resolve_device(run.device)
+def serve_inputs(run: ServeRun, device):
+    """(cfg, params, prompt [B, S], extra) of a served run on `device`:
+    params from `api.init_params` seeded with `run.seed`, the prompt (and
+    whisper's stub frames or phi-3-vision's stub patches, `extra`) from
+    `io.make_batch` seeded with `run.seed + 1`.  phi-3-vision's prompt
+    must be at least n_patches long, as the reference's splice assumes
+    (ValueError)."""
     cfg = configs.get(run.arch, reduced=run.reduced)
     if run.prompt_len < cfg.n_patches:
         raise ValueError(f"{run.arch}: the prompt ({run.prompt_len} tokens) "
@@ -109,13 +130,52 @@ def serve(run: ServeRun, log=print) -> dict:
             cfg.moe, impl="ep" if run.attn_impl == "pallas" else "dense"))
     gen = torch.Generator(device=device)
     params = api.init_params(cfg, gen.manual_seed(run.seed))
-
     cell = io.smoke_cell("prefill", b=run.batch, s=run.prompt_len)
     batch = io.make_batch(cfg, cell, gen.manual_seed(run.seed + 1))
-
     prompt = batch.pop("tokens")
+    return cfg, params, prompt, batch
+
+
+def shard_inputs(cfg, params, prompt, extra, mesh, rules):
+    """The params, prompt and extra inputs (whole and equal on every rank)
+    as DTensors at the rules' placements: each rank keeps its slices."""
+    def put(tree):
+        axes = {k: ("batch",) + (None,) * (v.dim() - 1)
+                for k, v in tree.items()}
+        return partition.distribute_tree(tree, axes, mesh, rules)
+    return (partition.distribute_tree(params, api.param_specs(cfg), mesh,
+                                      rules),
+            put({"tokens": prompt})["tokens"], put(extra))
+
+
+def serve(run: ServeRun, log=print) -> dict:
+    """Prefill a random prompt (`serve_inputs`), then decode greedily.
+
+    Returns prefill_s, decode_tok_per_s and tokens [B, max_new_tokens]
+    (numpy) as the reference does, plus the prompt, its other inputs
+    (`extra`: {} or the stub frames or patches) and the logits the tokens
+    were taken from (prefill's, then each decode step's), stacked
+    [B, max_new_tokens, V] on the device.  Launched over more than one
+    rank it serves over all of them (see the module docstring); the
+    params and the prompt are drawn whole on each rank from the same
+    seeds, and each rank keeps its slices.
+    """
+    sharded = mesh_mod.launched_world() > 1
+    if sharded:
+        device = mesh_mod.init_distributed(run.device)
+    else:
+        device = api.resolve_device(run.device)
+    cfg, params, prompt, batch = serve_inputs(run, device)
+    mesh = rules = None
+    args = (params, prompt, batch)
+    if sharded:
+        mesh = mesh_mod.make_mesh((1, torch.distributed.get_world_size()),
+                                  ("data", "model"))
+        rules = partition.make_rules("serve")
+        args = shard_inputs(cfg, params, prompt, batch, mesh, rules)
     tokens, logits, t_prefill, t_decode = generate(
-        cfg, params, prompt, run.max_new_tokens, extra=batch)
+        cfg, *args[:2], run.max_new_tokens, extra=args[2], mesh=mesh,
+        rules=rules)
     toks_per_s = (run.batch * (run.max_new_tokens - 1)) / max(t_decode, 1e-9)
     log(f"[serve] {run.arch} on {device} ({run.attn_impl}): prefill "
         f"{t_prefill * 1e3:.1f} ms, decode {toks_per_s:.1f} tok/s "

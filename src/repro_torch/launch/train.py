@@ -6,12 +6,17 @@ compression + FOS elastic re-partitioning (save -> rebuild the step for
 the next layout -> restore -> continue), with the reference's control
 flow and `history` keys.
 
-It runs on one device (`TrainRun.device`, default "cuda"; "cpu" when asked
-for).  The elastic switch keeps its save / return / re-enter-in-phase-1 /
-restore sequence; on one device the phase-1 layout is the phase-0 one, and
-the re-layout across devices comes with distribution.
+It runs SPMD over every rank of the world (`TrainRun.device`, default
+"cuda", one GPU a rank; "cpu" when asked for, gloo ranks), as the
+reference runs over every device: the mesh is (n, 1) ("data", "model"),
+the state is DTensors at the "train" rules' placements and each rank
+takes its shard of the global batch.  Without torchrun the world is this
+one process.  The elastic switch saves, returns, re-enters in phase 1,
+whose rules flip `embed` from "data" to None, and restores the
+checkpoint onto the new placements (the FOS replacement primitive).
 
     python -m repro_torch.launch.train [--device cpu] [--arch ...] [--full]
+    torchrun --nproc-per-node=<gpus> -m repro_torch.launch.train ...
 """
 from __future__ import annotations
 
@@ -21,14 +26,14 @@ import time
 
 import torch
 
-from repro_torch import configs, tree
+from repro_torch import configs
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.ckpt.fault import FaultInjector, InjectedFault, StepTimeout, \
     Watchdog, run_with_restarts
 from repro_torch.data.pipeline import DataConfig, Pipeline
-from repro_torch.launch import steps as steps_mod
-from repro_torch.models import api
+from repro_torch.launch import mesh as mesh_mod, steps as steps_mod
 from repro_torch.optim import adamw, grad_compress as gc
+from repro_torch.sharding import partition
 
 
 @dataclasses.dataclass
@@ -51,36 +56,49 @@ class TrainRun:
     device: str = "cuda"
 
 
-def _build(cfg, run: TrainRun):
+def _mesh_and_rules(elastic_phase: int = 0):
+    n = torch.distributed.get_world_size()
+    mesh = mesh_mod.make_mesh((n, 1), ("data", "model"))
+    # elastic phase 1 flips the FSDP rule: restoring across phases
+    # exercises reshard-on-restore (the FOS replacement primitive)
+    overrides = {"embed": None} if elastic_phase else None
+    rules = partition.make_rules("train", overrides=overrides)
+    return mesh, rules
+
+
+def _build(cfg, run: TrainRun, mesh, rules):
     opt_cfg = adamw.AdamWConfig(lr=run.lr, warmup_steps=5,
                                 total_steps=max(run.steps, 10))
-    return steps_mod.build_train_step(cfg, opt_cfg,
+    return steps_mod.build_train_step(cfg, opt_cfg, mesh, rules,
                                       grad_compress=run.grad_compress)
 
 
-def _init_state(cfg, run: TrainRun, device):
+def _state_placements(cfg, run: TrainRun, mesh, rules):
+    return partition.tree_placements(
+        steps_mod.train_state_axis_specs(cfg, run.grad_compress), rules, mesh)
+
+
+def _init_state(cfg, run: TrainRun, device, mesh, rules):
     gen = torch.Generator(device=device).manual_seed(run.seed)
     state = steps_mod.init_train_state(cfg, gen, device)
     if run.grad_compress:
         state["ef"] = gc.init_error_feedback(state["params"])
-    return state
+    return steps_mod.shard_train_state(state, cfg, mesh, rules)
 
 
 def _like_state(cfg, run: TrainRun):
     """The train state's shapes and dtypes as `meta` tensors (nothing
     allocated): the target structure of a restore."""
-    def empty(shape, dtype=cfg.param_dtype):
-        return torch.empty(shape, dtype=dtype, device="meta")
-    params = tree.tree_map(lambda spec: empty(spec.shape),
-                           api.param_table(cfg))
-    state = {"params": params, "opt": adamw.init(params)}
+    state = steps_mod.abstract_train_state(cfg)
     if run.grad_compress:
-        state["ef"] = gc.init_error_feedback(params)
+        state["ef"] = gc.init_error_feedback(state["params"])
     return state
 
 
 def train(run: TrainRun, log=print) -> dict:
-    device = api.resolve_device(run.device)
+    device = mesh_mod.init_distributed(run.device)
+    if torch.distributed.get_rank() != 0:
+        log = lambda *_: None   # noqa: E731 - one rank speaks
     cfg = configs.get(run.arch, reduced=run.reduced)
     cfg = dataclasses.replace(cfg, loss_chunk=0, remat="none",
                               scan_layers=True)
@@ -95,16 +113,20 @@ def train(run: TrainRun, log=print) -> dict:
         return _run_phase(start_step, phase)
 
     def _run_phase(start_step: int, phase: int) -> int:
-        step_fn = _build(cfg, run)
+        mesh, rules = _mesh_and_rules(phase)
+        step_fn = _build(cfg, run, mesh, rules)
         if mgr is not None and (run.resume or start_step > 0) \
                 and mgr.latest_step() is not None:
             ck = mgr.latest_step()
-            state = mgr.restore(ck, _like_state(cfg, run), device)
+            state = mgr.restore(ck, _like_state(cfg, run), device, mesh,
+                                _state_placements(cfg, run, mesh, rules))
             start = ck
             log(f"[train] restored step {ck} (phase {phase})")
         else:
-            state = _init_state(cfg, run, device)
+            state = _init_state(cfg, run, device, mesh, rules)
             start = 0
+        batch_pl = partition.tree_placements({"tokens": ("batch", None)},
+                                             rules, mesh)
         data = Pipeline(DataConfig(cfg.vocab, run.seq_len,
                                    run.global_batch, seed=run.seed),
                         start_step=start)
@@ -127,7 +149,8 @@ def train(run: TrainRun, log=print) -> dict:
                 wd.beat()
                 if wd.fired:
                     raise StepTimeout(f"straggler at step {step}")
-                batch = {k: torch.from_numpy(v).to(device)
+                batch = {k: partition.distribute(
+                    torch.from_numpy(v).to(device), mesh, batch_pl[k])
                          for k, v in batch.items()}
                 state, metrics = step_fn(state, batch)
                 if step % run.log_every == 0 or step == run.steps - 1:
@@ -191,6 +214,8 @@ def main():
                    elastic_switch_step=args.elastic_switch_step,
                    device=args.device)
     hist = train(run)
+    if torch.distributed.get_rank() != 0:
+        return
     print(f"[train] done: {hist['final_step']} steps, "
           f"{hist['steps_per_sec']:.2f} steps/s, "
           f"restarts={hist['restarts']}, "

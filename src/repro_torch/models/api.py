@@ -2,7 +2,8 @@
 
 Mirrors `repro/models/api.py`.  Every architecture is a ModelConfig; the
 param table (path -> ParamSpec) is the single source of truth for parameter
-shapes and initializers (every param has `cfg.param_dtype`).  Block params carry a leading `groups`
+shapes, logical sharding axes and initializers (every param has
+`cfg.param_dtype`).  Block params carry a leading `groups`
 axis (one entry per repeat of `layer_plan()`), as in the reference, so a
 converted reference param tree maps across leaf for leaf.
 
@@ -171,7 +172,11 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]    # logical axis names, len == len(shape)
     init: str = "normal"            # normal | zeros | ones | a_log | dt_bias
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def _attn_table(cfg: ModelConfig, cross: bool = False) -> dict:
@@ -182,18 +187,18 @@ def _attn_table(cfg: ModelConfig, cross: bool = False) -> dict:
     hkv = cfg.n_kv_heads * cfg.head_dim
     d = cfg.d_model
     t = {
-        "wq": ParamSpec((d, hq)),
-        "wk": ParamSpec((d, hkv)),
-        "wv": ParamSpec((d, hkv)),
-        "wo": ParamSpec((hq, d)),
+        "wq": ParamSpec((d, hq), ("embed", "q_proj")),
+        "wk": ParamSpec((d, hkv), ("embed", "kv_proj")),
+        "wv": ParamSpec((d, hkv), ("embed", "kv_proj")),
+        "wo": ParamSpec((hq, d), ("q_proj", "embed")),
     }
     if cfg.attn_bias:
-        t["bq"] = ParamSpec((hq,), "zeros")
-        t["bv"] = ParamSpec((hkv,), "zeros")
-        t["bo"] = ParamSpec((d,), "zeros")
+        t["bq"] = ParamSpec((hq,), ("q_proj",), "zeros")
+        t["bv"] = ParamSpec((hkv,), ("kv_proj",), "zeros")
+        t["bo"] = ParamSpec((d,), ("embed",), "zeros")
     if cfg.qk_norm and not cross:
-        t["q_norm"] = ParamSpec((cfg.head_dim,), "ones")
-        t["k_norm"] = ParamSpec((cfg.head_dim,), "ones")
+        t["q_norm"] = ParamSpec((cfg.head_dim,), (None,), "ones")
+        t["k_norm"] = ParamSpec((cfg.head_dim,), (None,), "ones")
     return t
 
 
@@ -201,25 +206,30 @@ def _mlp_table(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp_kind == "swiglu":
         return {
-            "w_gate": ParamSpec((d, f)),
-            "w_up": ParamSpec((d, f)),
-            "w_down": ParamSpec((f, d)),
+            "w_gate": ParamSpec((d, f), ("embed", "mlp")),
+            "w_up": ParamSpec((d, f), ("embed", "mlp")),
+            "w_down": ParamSpec((f, d), ("mlp", "embed")),
         }
-    t = {"w_up": ParamSpec((d, f)), "w_down": ParamSpec((f, d))}
+    t = {"w_up": ParamSpec((d, f), ("embed", "mlp")),
+         "w_down": ParamSpec((f, d), ("mlp", "embed"))}
     if cfg.attn_bias:   # whisper-style biases everywhere
-        t["b_up"] = ParamSpec((f,), "zeros")
-        t["b_down"] = ParamSpec((d,), "zeros")
+        t["b_up"] = ParamSpec((f,), ("mlp",), "zeros")
+        t["b_down"] = ParamSpec((d,), ("embed",), "zeros")
     return t
 
 
 def _moe_table(cfg: ModelConfig) -> dict:
     m = cfg.moe
     d = cfg.d_model
+    emb = "embed" if m.fsdp_experts else "embed_nofsdp"
     return {
-        "w_router": ParamSpec((d, m.n_experts)),
-        "w1": ParamSpec((m.n_experts, d, m.d_ff)),
-        "w3": ParamSpec((m.n_experts, d, m.d_ff)),
-        "w2": ParamSpec((m.n_experts, m.d_ff, d)),
+        "w_router": ParamSpec((d, m.n_experts), ("embed", None)),
+        "w1": ParamSpec((m.n_experts, d, m.d_ff),
+                        ("expert", emb, "expert_mlp")),
+        "w3": ParamSpec((m.n_experts, d, m.d_ff),
+                        ("expert", emb, "expert_mlp")),
+        "w2": ParamSpec((m.n_experts, m.d_ff, d),
+                        ("expert", "expert_mlp", emb)),
     }
 
 
@@ -227,33 +237,35 @@ def _mamba_table(cfg: ModelConfig) -> dict:
     s = cfg.mamba_spec
     d = cfg.d_model
     return {
-        "w_z": ParamSpec((d, s.d_inner)),
-        "w_x": ParamSpec((d, s.d_inner)),
-        "w_bc": ParamSpec((d, s.bc_dim)),
-        "w_dt": ParamSpec((d, s.n_heads)),
-        "dt_bias": ParamSpec((s.n_heads,), "dt_bias"),
-        "a_log": ParamSpec((s.n_heads,), "a_log"),
-        "d_skip": ParamSpec((s.n_heads,), "ones"),
-        "w_conv_x": ParamSpec((s.conv_kernel, s.d_inner)),
-        "b_conv_x": ParamSpec((s.d_inner,), "zeros"),
-        "w_conv_bc": ParamSpec((s.conv_kernel, s.bc_dim)),
-        "b_conv_bc": ParamSpec((s.bc_dim,), "zeros"),
-        "norm_w": ParamSpec((s.d_inner,), "ones"),
-        "w_out": ParamSpec((s.d_inner, d)),
+        "w_z": ParamSpec((d, s.d_inner), ("embed", "inner")),
+        "w_x": ParamSpec((d, s.d_inner), ("embed", "inner")),
+        "w_bc": ParamSpec((d, s.bc_dim), ("embed", None)),
+        "w_dt": ParamSpec((d, s.n_heads), ("embed", "heads_ssm")),
+        "dt_bias": ParamSpec((s.n_heads,), ("heads_ssm",), "dt_bias"),
+        "a_log": ParamSpec((s.n_heads,), ("heads_ssm",), "a_log"),
+        "d_skip": ParamSpec((s.n_heads,), ("heads_ssm",), "ones"),
+        "w_conv_x": ParamSpec((s.conv_kernel, s.d_inner), (None, "inner")),
+        "b_conv_x": ParamSpec((s.d_inner,), ("inner",), "zeros"),
+        "w_conv_bc": ParamSpec((s.conv_kernel, s.bc_dim), (None, None)),
+        "b_conv_bc": ParamSpec((s.bc_dim,), (None,), "zeros"),
+        "norm_w": ParamSpec((s.d_inner,), ("inner",), "ones"),
+        "w_out": ParamSpec((s.d_inner, d), ("inner", "embed")),
     }
 
 
 def _norm_table(cfg: ModelConfig, name: str) -> dict:
-    t = {f"{name}_w": ParamSpec((cfg.d_model,), "ones")}
+    t = {f"{name}_w": ParamSpec((cfg.d_model,), ("embed",), "ones")}
     if cfg.norm_kind == "layer":
-        t[f"{name}_b"] = ParamSpec((cfg.d_model,), "zeros")
+        t[f"{name}_b"] = ParamSpec((cfg.d_model,), ("embed",), "zeros")
     return t
 
 
 def _stack_specs(tree: dict, n: int) -> dict:
-    """Prepend a `groups` axis of size n to every spec in tree."""
+    """Prepend a `groups` axis of size n (logical axis "layers") to every
+    spec in tree."""
     return {k: (_stack_specs(v, n) if isinstance(v, dict)
-                else ParamSpec((n,) + v.shape, v.init))
+                else ParamSpec((n,) + v.shape, ("layers",) + v.axes,
+                               v.init))
             for k, v in tree.items()}
 
 
@@ -282,18 +294,39 @@ def param_table(cfg: ModelConfig) -> dict:
     group = {f"sub{i}": _sublayer_table(cfg, mixer, ffn, cross)
              for i, (mixer, ffn) in enumerate(plan)}
     table = {
-        "embed": {"tok": ParamSpec((cfg.padded_vocab, cfg.d_model))},
+        "embed": {"tok": ParamSpec((cfg.padded_vocab, cfg.d_model),
+                                   ("vocab", "embed"))},
         "blocks": _stack_specs(group, n_groups),
         "final": _norm_table(cfg, "lnf"),
     }
     if not cfg.tie_embeddings:
-        table["lm_head"] = ParamSpec((cfg.d_model, cfg.padded_vocab))
+        table["lm_head"] = ParamSpec((cfg.d_model, cfg.padded_vocab),
+                                     ("embed", "vocab"))
     if cross:   # the encoder stack and the decoder's learned positions
         enc = {"sub0": _sublayer_table(cfg, "attn", "dense")}
         table["enc_blocks"] = _stack_specs(enc, cfg.n_enc_layers)
         table["enc_final"] = _norm_table(cfg, "lnf")
-        table["dec_pos"] = ParamSpec((cfg.max_pos, cfg.d_model))
+        table["dec_pos"] = ParamSpec((cfg.max_pos, cfg.d_model),
+                                     (None, "embed"))
     return table
+
+
+def _table_map(fn, table: dict) -> dict:
+    return {k: (_table_map(fn, v) if isinstance(v, dict) else fn(v))
+            for k, v in table.items()}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical-axes tuple of every param, mirroring the params."""
+    return _table_map(lambda s: s.axes, param_table(cfg))
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """Every param as a `meta` tensor of its shape and dtype: nothing is
+    allocated (the reference's ShapeDtypeStructs)."""
+    return _table_map(lambda s: torch.empty(s.shape, dtype=cfg.param_dtype,
+                                            device="meta"),
+                      param_table(cfg))
 
 
 def flatten(tree: dict, prefix: str = "") -> list[tuple[str, Any]]:
@@ -308,6 +341,18 @@ def flatten(tree: dict, prefix: str = "") -> list[tuple[str, Any]]:
 def param_count(cfg: ModelConfig) -> int:
     return sum(int(torch.Size(s.shape).numel())
                for _, s in flatten(param_table(cfg)))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE counts top_k of n_experts)."""
+    total = param_count(cfg)
+    if cfg.moe is not None:
+        n_groups, plan = cfg.layer_plan()
+        m = cfg.moe
+        expert_params = 3 * cfg.d_model * m.d_ff
+        n_moe_layers = sum(1 for _, f in plan if f == "moe") * n_groups
+        total -= n_moe_layers * expert_params * (m.n_experts - m.top_k)
+    return total
 
 
 def _init_leaf(spec: ParamSpec, cfg: ModelConfig,

@@ -1,9 +1,64 @@
-"""Concrete inputs per (config, shape cell); mirrors `repro/models/io.py`."""
+"""Inputs per (config, shape cell); mirrors `repro/models/io.py`.
+
+`input_specs` gives `meta` tensors (shapes and dtypes, never allocated),
+`make_batch` concrete tensors, and `input_axis_specs` the matching
+logical-axes tree from which the placements derive.
+"""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import stack
 from repro_torch.models.api import ModelConfig, ShapeCell
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _batch_inputs(cfg: ModelConfig, b: int, s: int) -> dict:
+    specs = {"tokens": _meta((b, s), torch.int32)}
+    if cfg.family == "encdec":
+        specs["frames"] = _meta((b, cfg.enc_seq, cfg.d_model),
+                                torch.bfloat16)
+    if cfg.family == "vlm":
+        specs["patches"] = _meta((b, cfg.n_patches, cfg.d_model),
+                                 torch.bfloat16)
+    return specs
+
+
+def _batch_axes_tree(cfg: ModelConfig) -> dict:
+    axes = {"tokens": ("batch", None)}
+    if cfg.family == "encdec":
+        axes["frames"] = ("batch", None, None)
+    if cfg.family == "vlm":
+        axes["patches"] = ("batch", None, None)
+    return axes
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """Abstract inputs of the cell's step function.
+
+    train/prefill: {"batch": {...}}
+    decode:        {"cache": ..., "tokens": [B,1], "pos": scalar}
+    """
+    if cell.kind in ("train", "prefill"):
+        return {"batch": _batch_inputs(cfg, cell.global_batch, cell.seq_len)}
+    return {
+        "cache": stack.abstract_cache(cfg, cell.global_batch, cell.seq_len),
+        "tokens": _meta((cell.global_batch, 1), torch.int32),
+        "pos": _meta((), torch.int32),
+    }
+
+
+def input_axis_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    if cell.kind in ("train", "prefill"):
+        return {"batch": _batch_axes_tree(cfg)}
+    return {
+        "cache": stack.cache_axis_specs(cfg),
+        "tokens": ("batch", None),
+        "pos": (),
+    }
 
 
 def make_batch(cfg: ModelConfig, cell: ShapeCell,

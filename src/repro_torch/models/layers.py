@@ -1,19 +1,28 @@
-"""Core layers of the model zoo (norms, attention, MLPs), single device.
+"""Core layers of the model zoo (norms, attention, MLPs).
 
 Mirrors `repro/models/layers.py`: params are nested dicts of tensors and
-every function takes (params, inputs, config-ish kwargs).  The reference's
-`partition.constrain` calls are dropped (one device); its sequence-sharded
-cache attention waits for ROADMAP A13.
+every function takes (params, inputs, config-ish kwargs).  Under a mesh
+each rank runs these functions on its local tensors (its batch shard,
+full weights); the reference's `partition.constrain` calls are kept and
+redistribute only a DTensor, so on the local tensors they are the
+identity.  The reference's two `shard_map` bodies over a
+sequence-sharded KV cache are per-rank functions here
+(`sharded_cache_attention`, `sharded_cache_update_attention`): each rank
+attends over its local slice of the cache and the partials merge by an
+online softmax, `all_reduce` MAX and SUM over the ranks of the `seq_kv`
+mesh axes.
 
 Attention paths:
   - cache-free causal:  _sdpa | _chunked_sdpa (q-block loop) | flash kernel
   - cache-free non-causal (whisper's encoder): _sdpa | _chunked_sdpa
   - prefill (s > 1):    _sdpa / _chunked_sdpa over the fresh k/v, as the
     reference does (it never sends prefill through the flash kernel)
-  - decode (s == 1):    _local_cached_attention | decode kernel
+  - decode (s == 1):    _local_cached_attention | decode kernel | the
+    sequence-sharded bodies under a mesh
   - cross (whisper):    _sdpa / _chunked_sdpa, unmasked, over the encoder's
-    k/v on every device, as the reference's `_sublayer` sends cross
-    attention through "xla" whatever the config's attn_impl
+    k/v, as the reference's `_sublayer` sends cross attention through
+    "xla" whatever the config's attn_impl; at s == 1 under a mesh the
+    sharded non-causal body
 `attn_impl="xla"` selects the plain torch math, `"pallas"` the Hopper
 kernels; the names are the reference's, so configs map one-to-one.
 """
@@ -22,9 +31,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.sharding import partition
 
 ATTN_IMPLS = ("xla", "pallas")
 
@@ -140,6 +152,9 @@ def _sdpa(q, k, v, spec: AttentionSpec, mask) -> torch.Tensor:
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
+    q = partition.constrain(q, ("batch", "seq_attn", "heads", None))
+    k = partition.constrain(k, ("batch", "seq_attn", "heads", None))
+    v = partition.constrain(v, ("batch", "seq_attn", "heads", None))
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * spec.scale
     if mask is not None:
         mask = mask.reshape(mask.shape[0], mask.shape[1],
@@ -180,42 +195,232 @@ def _local_cached_attention(q, k_cache, v_cache, spec, cache_pos):
     return _sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), spec, valid)
 
 
-def sharded_cache_attention(*args, **kwargs):
-    raise NotImplementedError("sequence-sharded cache attention: ROADMAP A13")
+def _n_seq_shards(mesh, rules) -> int:
+    return partition.axis_size(mesh, rules.get("seq_kv"))
 
 
-def sharded_cache_update_attention(*args, **kwargs):
-    raise NotImplementedError("sequence-sharded cache attention: ROADMAP A13")
+def local_rows(n_rows: int, mesh, axes) -> tuple[int, int]:
+    """(start, size) of this rank's rows of a dim of `n_rows` sharded over
+    `axes`: DTensor's split, ceil-sized chunks per mesh axis in mesh
+    order, the last ones short or empty."""
+    start, size = 0, n_rows
+    names, sizes, coord = partition.geometry(mesh)
+    for a in partition.flat_axes(axes):
+        d = names.index(a)
+        c = -(-size // sizes[d])
+        i = coord[d]
+        start += i * c
+        size = max(0, min(c, size - i * c))
+    return start, size
+
+
+def _merged_partial_attention(qb, kb, vb, spec, start, s_valid, cache_pos,
+                              causal, mesh, seq_flat):
+    """The per-rank body of the reference's sharded cache attention: this
+    rank's keys are rows [start, start + kb.shape[1]) of the global cache.
+    Partial softmax over them, merged over the `seq_flat` ranks by the
+    global max and sums.  Rows past `s_valid` (the pad) are masked."""
+    bl, s, hq, hd = qb.shape
+    s_loc = kb.shape[1]
+    if s_loc == 0:      # an empty shard: one masked row keeps max defined
+        kb = kb.new_zeros((bl, 1) + tuple(kb.shape[2:]))
+        vb = vb.new_zeros((bl, 1) + tuple(vb.shape[2:]))
+        s_loc, start = 1, s_valid
+    hkv = kb.shape[2]
+    g = hq // hkv
+    qg = qb.reshape(bl, s, hkv, g, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          kb.to(qb.dtype).float()) * spec.scale
+    kpos = start + torch.arange(s_loc, device=qb.device)[None, :]
+    qpos = (cache_pos + torch.arange(s, device=qb.device))[:, None]
+    mask = (kpos <= qpos) if causal else (kpos < s_valid)
+    mask = mask & (kpos < s_valid)
+    scores = torch.where(mask[None, None, None], scores, -torch.inf)
+    m_glob = partition.all_reduce(scores.amax(dim=-1, keepdim=True),
+                                  mesh, seq_flat, dist.ReduceOp.MAX)
+    m_glob = m_glob.clamp_min(-1e30)                      # all-masked guard
+    p = torch.exp(scores - m_glob)
+    l_glob = partition.all_reduce(p.sum(dim=-1), mesh, seq_flat)
+    o_glob = partition.all_reduce(
+        torch.einsum("bhgqk,bkhd->bqhgd", p.to(vb.dtype).float(),
+                     vb.float()), mesh, seq_flat)
+    # l_glob [b,h,g,s] -> [b,s,h,g,1] to divide o_glob [b,s,h,g,hd]
+    out = o_glob / l_glob.movedim(3, 1)[..., None]
+    return out.reshape(bl, s, hq, hd).to(qb.dtype)
+
+
+def _seq_slice(x: torch.Tensor, mesh, seq_flat):
+    """(this rank's rows of x's dim 1 as the sequence-sharded split would
+    hold them, their start)."""
+    start, size = local_rows(x.shape[1], mesh, seq_flat)
+    return x[:, start:start + size], start
+
+
+def sharded_cache_attention(q, k_cache, v_cache, spec: AttentionSpec,
+                            cache_pos, mesh, rules, causal=True):
+    """Decode attention over a *sequence-sharded* KV cache, on this rank.
+
+    q: [B_loc, s, Hq, hd], this rank's batch shard (the same on every
+    rank of the `seq_kv` axes).  k_cache/v_cache: DTensors of global
+    [B, S, Hkv, hd] sharded over rules["seq_kv"] (their local slices are
+    read), or plain local [B_loc, S, Hkv, hd] tensors holding every row
+    (cross attention's k/v), of which this rank takes its rows.  Each
+    rank computes partial attention over its slice and the partials merge
+    (all_reduce MAX, then SUM), equal to the global softmax.  The
+    reference pads S to a multiple of the shards; here a short or empty
+    last shard is masked past S instead."""
+    seq_flat = partition.flat_axes(rules.get("seq_kv"))
+    if not seq_flat:
+        return _local_cached_attention(q, partition.local(k_cache),
+                                       partition.local(v_cache), spec,
+                                       cache_pos)
+    s_valid = k_cache.shape[1]
+    if isinstance(k_cache, DTensor):
+        start, _ = local_rows(s_valid, mesh, seq_flat)
+        kb, vb = k_cache.to_local(), v_cache.to_local()
+    else:
+        kb, start = _seq_slice(k_cache, mesh, seq_flat)
+        vb, _ = _seq_slice(v_cache, mesh, seq_flat)
+    return _merged_partial_attention(q, kb, vb, spec, start, s_valid,
+                                     cache_pos, causal, mesh, seq_flat)
+
+
+def _write_rows(cache: torch.Tensor, start: int, new: torch.Tensor,
+                cache_pos: int) -> None:
+    """Write the rows [cache_pos, cache_pos + s) of `new` that fall in
+    this local slice (global rows [start, start + len)) in place."""
+    lo = max(cache_pos, start)
+    hi = min(cache_pos + new.shape[1], start + cache.shape[1])
+    if lo < hi:
+        cache[:, lo - start:hi - start].copy_(
+            new[:, lo - cache_pos:hi - cache_pos])
+
+
+def sharded_cache_update_attention(q, k_new, v_new, k_cache, v_cache,
+                                   spec: AttentionSpec, cache_pos, mesh,
+                                   rules):
+    """Single-token decode with the cache update inside the per-rank body:
+    the rank whose slice holds `cache_pos` writes the new row into its
+    local shard in place; then the merge of sharded_cache_attention.
+
+    q: [B_loc, 1, Hq, hd]; k_new/v_new: [B_loc, 1, Hkv, hd]; caches:
+    DTensors of global [B, S, Hkv, hd], sequence-sharded.
+    Returns (out [B_loc,1,Hq,hd], k_cache, v_cache)."""
+    seq_flat = partition.flat_axes(rules.get("seq_kv"))
+    assert seq_flat, "requires a sequence-sharded cache"
+    s_valid = k_cache.shape[1]
+    start, _ = local_rows(s_valid, mesh, seq_flat)
+    kb, vb = k_cache.to_local(), v_cache.to_local()
+    _write_rows(kb, start, k_new, cache_pos)
+    _write_rows(vb, start, v_new, cache_pos)
+    out = _merged_partial_attention(q, kb, vb, spec, start, s_valid,
+                                    cache_pos, True, mesh, seq_flat)
+    return out, k_cache, v_cache
+
+
+def _gathered_seq(cache: DTensor, mesh, seq_flat, heads) -> torch.Tensor:
+    """This rank's batch shard of the cache with every row, all-gathered
+    over the `seq_kv` axes (what GSPMD gives the reference's decode
+    kernel), and of it the kv heads `heads`.  The rows come from the
+    other ranks of those axes, whose own heads (when they also split the
+    heads) are others: every head is gathered, then sliced."""
+    names = partition.geometry(mesh)[0]
+    pl = [Replicate() if names[i] in seq_flat else p
+          for i, p in enumerate(cache.placements)]
+    return partition.gather_to(cache, pl)[:, :, heads]
+
+
+def tp_heads(spec: AttentionSpec, mesh, tp) -> tuple:
+    """(this rank's share of the heads as an AttentionSpec, the slice of
+    its q heads, the slice of its kv heads) under tensor parallelism over
+    the mesh axes `tp`; the spec and every head without it."""
+    if not tp:
+        return spec, slice(None), slice(None)
+    n = partition.axis_size(mesh, tp)
+    r = partition.axis_index(mesh, tp)
+    local = dataclasses.replace(spec, n_heads=spec.n_heads // n,
+                                n_kv_heads=spec.n_kv_heads // n)
+    return (local, slice(r * local.n_heads, (r + 1) * local.n_heads),
+            slice(r * local.n_kv_heads, (r + 1) * local.n_kv_heads))
+
+
+def all_heads(x: torch.Tensor, mesh, tp) -> torch.Tensor:
+    """[B, S, H_loc, hd] of every rank of the mesh axes `tp` joined along
+    the heads (in rank order along the axes, as the params split them):
+    what a cache that holds every head keeps.  No gradient."""
+    if not tp:
+        return x
+    names = partition.geometry(mesh)[0]
+    pl = [Shard(2) if names[i] in tp else Replicate()
+          for i in range(len(names))]
+    shape = (x.shape[0], x.shape[1],
+             x.shape[2] * partition.axis_size(mesh, tp), x.shape[3])
+    return partition.gather_to(DTensor.from_local(
+        x.detach().contiguous(), mesh, pl, shape=shape,
+        stride=torch.empty(shape, device="meta").stride()),
+        [Replicate()] * len(names))
 
 
 def attention(params, x, spec: AttentionSpec, positions,
               attn_impl: str = "xla", kv_cache=None, cache_pos=None,
-              cross_kv=None, mesh=None):
+              cross_kv=None, mesh=None, tp=()):
     """General attention entry point; returns (out [B,S,D], new_cache|None).
 
     - full self-attention: kv_cache is None.
     - prefill: kv_cache given, s > 1 -> attention over fresh k/v + cache fill.
-    - decode: kv_cache given, s == 1 -> cached attention.
+    - decode: kv_cache given, s == 1 -> cached attention (sharded when a
+      mesh is given and the active rules shard the cache's sequence).
     - cross attention: cross_kv = (k, v) [B, Se, Hkv, hd] from the encoder
-      states; every query sees every encoder position.
+      states (or this rank's kv heads of them); every query sees every
+      encoder position.
     `cache_pos` is a Python int.  The cache dict {"k", "v"} of
-    [B, S_max, Hkv, hd] tensors is written in place and returned.
+    [B, S_max, Hkv, hd] tensors (under a mesh: DTensors, whose local
+    slices are written) is written in place and returned.  The dispatch
+    order is the reference's.
+
+    `tp`: the mesh axes of Megatron's tensor parallelism.  The params are
+    this rank's share of the heads (wq/wk/wv and their biases its
+    columns, wo its rows); it attends with its q heads over its kv heads
+    (a cache holds every head: the new k/v rows are all-gathered over
+    `tp` to write it), and its part of the output projection is summed
+    over `tp`.
     """
-    if mesh is not None:
-        raise NotImplementedError("sharded attention: ROADMAP A13")
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     b, s, _ = x.shape
+    rules = partition.active_rules()
+    whole = spec
+    spec, q_heads, heads = tp_heads(spec, mesh, tp)
+    if tp:
+        x = partition.copy_to_group(x, mesh, tp)
+
+    def every_head(body, q):
+        # the sequence-sharded merge sums over the `seq_kv` ranks, which
+        # must attend with the same heads: q's heads are gathered from
+        # the tensor-parallel ranks, and this rank keeps its heads' output
+        if not tp:
+            return body(q, spec)
+        return body(all_heads(q, mesh, tp), whole)[:, :, q_heads]
+
     if cross_kv is not None:
         q = torch.einsum("bsd,dh->bsh", x, params["wq"].to(x.dtype))
         if spec.bias:
             q = q + params["bq"].to(x.dtype)
         q = q.reshape(b, s, spec.n_heads, spec.head_dim)
-        k, v = (t.to(q.dtype) for t in cross_kv)
-        if spec.attn_chunk and s > spec.attn_chunk:
-            out = _chunked_sdpa(q, k, v, spec, 0, causal=False)
+        k, v = (partition.local(t) for t in cross_kv)
+        if s == 1 and mesh is not None and rules is not None:
+            if tp and k.shape[2] == spec.n_kv_heads:    # this rank's heads
+                k, v = all_heads(k, mesh, tp), all_heads(v, mesh, tp)
+            out = every_head(lambda qq, sp: sharded_cache_attention(
+                qq, k, v, sp, 0, mesh, rules, causal=False), q)
         else:
-            out = _sdpa(q, k, v, spec, None)
+            if k.shape[2] != spec.n_kv_heads:   # a cache's: every head
+                k, v = k[:, :, heads], v[:, :, heads]
+            if spec.attn_chunk and s > spec.attn_chunk:
+                out = _chunked_sdpa(q, k.to(q.dtype), v.to(q.dtype), spec,
+                                    0, causal=False)
+            else:
+                out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), spec, None)
         new_cache = None
     elif kv_cache is None:
         q, k, v = _project_qkv(params, x, spec, positions)
@@ -230,27 +435,52 @@ def attention(params, x, spec: AttentionSpec, positions,
         new_cache = None
     else:
         q, k, v = _project_qkv(params, x, spec, positions)
-        # in-place cache write, where the reference returns a new cache
-        # from dynamic_update_slice; copy_ casts to the cache dtype
         k_cache, v_cache = kv_cache["k"], kv_cache["v"]
-        k_cache[:, cache_pos:cache_pos + s].copy_(k)
-        v_cache[:, cache_pos:cache_pos + s].copy_(v)
-        if s > 1:
-            # prefill: attend over the fresh k/v (== cache content)
-            if spec.attn_chunk and s > spec.attn_chunk:
-                out = _chunked_sdpa(q, k, v, spec, 0, causal=True)
-            else:
-                out = _sdpa(q, k, v, spec, causal_mask(s, s, device=x.device))
-        elif attn_impl == "pallas":
-            out = da_ops.decode_attention(q[:, 0], k_cache, v_cache,
-                                          cache_pos + s,
-                                          scale=spec.scale)[:, None]
+        k_all, v_all = all_heads(k, mesh, tp), all_heads(v, mesh, tp)
+        seq_flat = (partition.flat_axes(rules.get("seq_kv"))
+                    if rules is not None and mesh is not None else ())
+        if s == 1 and seq_flat and \
+                k_cache.shape[1] % _n_seq_shards(mesh, rules) == 0 \
+                and attn_impl == "xla":
+            out = every_head(lambda qq, sp: sharded_cache_update_attention(
+                qq, k_all, v_all, k_cache, v_cache, sp, cache_pos, mesh,
+                rules)[0], q)
         else:
-            out = _local_cached_attention(q, k_cache, v_cache, spec,
-                                          cache_pos)
+            # in-place cache write (of this rank's rows under a mesh),
+            # where the reference returns a new cache from
+            # dynamic_update_slice; copy_ casts to the cache dtype
+            start = (local_rows(k_cache.shape[1], mesh, seq_flat)[0]
+                     if seq_flat else 0)
+            _write_rows(partition.local(k_cache), start, k_all, cache_pos)
+            _write_rows(partition.local(v_cache), start, v_all, cache_pos)
+            if s > 1:
+                # prefill: attend over the fresh k/v (== cache content)
+                if spec.attn_chunk and s > spec.attn_chunk:
+                    out = _chunked_sdpa(q, k, v, spec, 0, causal=True)
+                else:
+                    out = _sdpa(q, k, v, spec,
+                                causal_mask(s, s, device=x.device))
+            elif attn_impl == "pallas":
+                if seq_flat:
+                    kc = _gathered_seq(k_cache, mesh, seq_flat, heads)
+                    vc = _gathered_seq(v_cache, mesh, seq_flat, heads)
+                else:
+                    kc = partition.local(k_cache)[:, :, heads]
+                    vc = partition.local(v_cache)[:, :, heads]
+                out = da_ops.decode_attention(
+                    q[:, 0], kc, vc, cache_pos + s, scale=spec.scale)[:, None]
+            elif mesh is not None and rules is not None:
+                out = every_head(lambda qq, sp: sharded_cache_attention(
+                    qq, k_cache, v_cache, sp, cache_pos, mesh, rules), q)
+            else:
+                out = _local_cached_attention(q, k_cache, v_cache, spec,
+                                              cache_pos)
         new_cache = kv_cache
     out = out.reshape(b, s, spec.q_dim)
     y = torch.einsum("bsh,hd->bsd", out, params["wo"].to(x.dtype))
+    if tp:
+        y = partition.reduce_from_group(y, mesh, tp)
+    y = partition.constrain(y, ("batch", "seq", "embed_act"))
     if spec.bias:
         y = y + params["bo"].to(x.dtype)
     return y, new_cache
@@ -263,16 +493,22 @@ def causal_mask(sq: int, sk: int, offset: int = 0,
     return (ki <= qi)[None, None, None]
 
 
-def cross_kv_from_encoder(params, enc: torch.Tensor, spec: AttentionSpec):
+def cross_kv_from_encoder(params, enc: torch.Tensor, spec: AttentionSpec,
+                          mesh=None, tp=()):
     """The cross attention's (k, v) [B, Se, Hkv, hd] from the encoder
-    states [B, Se, D]: v carries its bias, k has none."""
+    states [B, Se, D]: v carries its bias, k has none.  Under tensor
+    parallelism over `tp`, this rank's kv heads (wk/wv its columns); the
+    encoder states' gradient sums over `tp`."""
     b, se, _ = enc.shape
+    if tp:
+        enc = partition.copy_to_group(enc, mesh, tp)
     k = torch.einsum("bsd,dh->bsh", enc, params["wk"].to(enc.dtype))
     v = torch.einsum("bsd,dh->bsh", enc, params["wv"].to(enc.dtype))
     if spec.bias:
         v = v + params["bv"].to(enc.dtype)
-    return (k.reshape(b, se, spec.n_kv_heads, spec.head_dim),
-            v.reshape(b, se, spec.n_kv_heads, spec.head_dim))
+    # -1 heads: a tensor-parallel rank's wk/wv hold its share of them
+    return (k.reshape(b, se, -1, spec.head_dim),
+            v.reshape(b, se, -1, spec.head_dim))
 
 
 # ---------------------------------------------------------------------------
@@ -280,27 +516,40 @@ def cross_kv_from_encoder(params, enc: torch.Tensor, spec: AttentionSpec):
 # ---------------------------------------------------------------------------
 
 
-def swiglu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+def swiglu_mlp(params, x: torch.Tensor, mesh=None, tp=()) -> torch.Tensor:
+    if tp:
+        x = partition.copy_to_group(x, mesh, tp)
     gate = torch.einsum("bsd,df->bsf", x, params["w_gate"].to(x.dtype))
     up = torch.einsum("bsd,df->bsf", x, params["w_up"].to(x.dtype))
     h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return torch.einsum("bsf,fd->bsd", h, params["w_down"].to(x.dtype))
+    y = torch.einsum("bsf,fd->bsd", h, params["w_down"].to(x.dtype))
+    if tp:
+        y = partition.reduce_from_group(y, mesh, tp)
+    return partition.constrain(y, ("batch", "seq", "embed_act"))
 
 
-def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(params, x: torch.Tensor, mesh=None, tp=()) -> torch.Tensor:
+    if tp:
+        x = partition.copy_to_group(x, mesh, tp)
     h = torch.einsum("bsd,df->bsf", x, params["w_up"].to(x.dtype))
     if "b_up" in params:
         h = h + params["b_up"].to(x.dtype)
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
     y = torch.einsum("bsf,fd->bsd", h, params["w_down"].to(x.dtype))
+    if tp:
+        y = partition.reduce_from_group(y, mesh, tp)
+    y = partition.constrain(y, ("batch", "seq", "embed_act"))
     if "b_down" in params:
         y = y + params["b_down"].to(x.dtype)
     return y
 
 
-def mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, kind: str, mesh=None, tp=()) -> torch.Tensor:
+    """The MLP; under tensor parallelism over the mesh axes `tp` the
+    params are this rank's hidden units (the up projections' columns, the
+    down projection's rows) and the partial outputs sum over `tp`."""
     if kind == "swiglu":
-        return swiglu_mlp(params, x)
+        return swiglu_mlp(params, x, mesh, tp)
     if kind == "gelu":
-        return gelu_mlp(params, x)
+        return gelu_mlp(params, x, mesh, tp)
     raise ValueError(f"unknown mlp kind {kind!r}")

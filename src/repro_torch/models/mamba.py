@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers
+from repro_torch.sharding import partition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,33 +73,58 @@ def _conv_step(buf, u_new, w, bias):
     return out.to(u_new.dtype), full[:, 1:, :].to(cache_dtype)
 
 
-def mamba_block(params, x, spec: MambaSpec, state=None):
+def mamba_block(params, x, spec: MambaSpec, state=None, mesh=None, tp=()):
     """Apply the mixer.
 
     Train / prefill (state=None, or L > 1): full-sequence chunked SSD.
       Returns (y, new_state) where new_state = (ssm_state, conv_x_tail,
       conv_bc_tail) so prefill can seed decode.
     Decode: state as above; x is [B,1,D]; returns (y, new_state).
+
+    `tp`: the mesh axes of tensor parallelism over the heads.  The params
+    are this rank's heads (w_z/w_x/w_dt and the per-channel and per-head
+    params its share, w_out its rows) and the state its heads' (the ssm
+    state, the x conv tail); B/C, shared by every head of a group, are
+    computed whole on each rank and its groups taken (with one group, the
+    group), their gradient summed over `tp` (Megatron's f after the
+    replicated branch, so that x's gradient counts it once); the gated
+    norm's mean square sums over `tp`, and so does the output projection.
     """
     bsz, seqlen, _ = x.shape
-    z = x @ params["w_z"].to(x.dtype)
-    xu = x @ params["w_x"].to(x.dtype)
+    n_heads, n_groups, d_inner = spec.n_heads, spec.n_groups, spec.d_inner
+    g0 = 0
+    xs = x
+    if tp:
+        n = partition.axis_size(mesh, tp)
+        n_heads, d_inner = n_heads // n, d_inner // n
+        if n_groups > 1:
+            n_groups //= n
+            g0 = partition.axis_index(mesh, tp) * n_groups
+        xs = partition.copy_to_group(x, mesh, tp)
+    z = xs @ params["w_z"].to(x.dtype)
+    xu = xs @ params["w_x"].to(x.dtype)
     bc = x @ params["w_bc"].to(x.dtype)
-    dt = x @ params["w_dt"].to(x.dtype)
+    dt = xs @ params["w_dt"].to(x.dtype)
     dt = F.softplus(dt.float() + params["dt_bias"].float())
     a = -torch.exp(params["a_log"].float())                    # [H]
     gn = spec.n_groups * spec.d_state
+
+    def groups(bcc):
+        if tp:
+            bcc = partition.copy_to_group(bcc, mesh, tp)
+        bi, ci = bcc[..., :gn], bcc[..., gn:]
+        shape = bcc.shape[:-1] + (spec.n_groups, spec.d_state)
+        return (bi.reshape(shape)[..., g0:g0 + n_groups, :],
+                ci.reshape(shape)[..., g0:g0 + n_groups, :])
 
     if seqlen > 1 or state is None:
         # full-sequence chunked scan (training, or prefill into a cache);
         # an existing ssm state (all-zeros at prefill start) seeds the scan.
         initial_state = state[0] if state is not None else None
         xc = _causal_conv(xu, params["w_conv_x"], params["b_conv_x"])
-        bcc = _causal_conv(bc, params["w_conv_bc"], params["b_conv_bc"])
-        bi, ci = bcc[..., :gn], bcc[..., gn:]
-        xi = xc.reshape(bsz, seqlen, spec.n_heads, spec.headdim)
-        bi = bi.reshape(bsz, seqlen, spec.n_groups, spec.d_state)
-        ci = ci.reshape(bsz, seqlen, spec.n_groups, spec.d_state)
+        bi, ci = groups(_causal_conv(bc, params["w_conv_bc"],
+                                     params["b_conv_bc"]))
+        xi = xc.reshape(bsz, seqlen, n_heads, spec.headdim)
         y, ssm_state = ssd_ops.ssd(
             xi, dt, a, bi, ci, chunk=spec.chunk, impl=spec.ssd_impl,
             initial_state=initial_state)
@@ -117,13 +143,11 @@ def mamba_block(params, x, spec: MambaSpec, state=None):
                                params["b_conv_x"])
         bcc, buf_bc = _conv_step(buf_bc, bc, params["w_conv_bc"],
                                  params["b_conv_bc"])
-        bi, ci = bcc[..., :gn], bcc[..., gn:]
-        xi = xc.reshape(bsz, spec.n_heads, spec.headdim)
-        bi = bi.reshape(bsz, spec.n_groups, spec.d_state)
-        ci = ci.reshape(bsz, spec.n_groups, spec.d_state)
+        bi, ci = groups(bcc)
+        xi = xc.reshape(bsz, n_heads, spec.headdim)
         dt1 = dt[:, 0]                                          # [B, H]
         decay = torch.exp(dt1 * a[None, :])                     # [B, H]
-        rep = spec.n_heads // spec.n_groups
+        rep = n_heads // n_groups
         b_h = bi.repeat_interleave(rep, dim=1).float()          # [B, H, N]
         c_h = ci.repeat_interleave(rep, dim=1).float()
         xf = xi.float()
@@ -135,9 +159,28 @@ def mamba_block(params, x, spec: MambaSpec, state=None):
         y = y[:, None]                                          # [B,1,H,P]
         new_state = (ssm_state, buf_x, buf_bc)
 
-    y = y.reshape(bsz, seqlen, spec.d_inner)
+    y = y.reshape(bsz, seqlen, d_inner)
     # gated RMSNorm (mamba2 style): norm(y * silu(z))
     y = y * F.silu(z.float())
-    y = layers.rms_norm(y.to(x.dtype), params["norm_w"])
+    if tp:
+        y = _rms_norm_split(y.to(x.dtype), params["norm_w"], spec.d_inner,
+                            mesh, tp)
+    else:
+        y = layers.rms_norm(y.to(x.dtype), params["norm_w"])
     out = y @ params["w_out"].to(x.dtype)
+    if tp:
+        out = partition.reduce_from_group(out, mesh, tp)
+    out = partition.constrain(out, ("batch", "seq", "embed_act"))
     return out, new_state
+
+
+def _rms_norm_split(y, weight, width: int, mesh, tp, eps: float = 1e-6):
+    """`layers.rms_norm` over a last dim of `width` channels split over
+    the ranks of `tp` (this rank's y and weight its channels): the mean
+    square sums over `tp`, and so does its gradient (each rank scales its
+    own channels by it)."""
+    dtype = y.dtype
+    y = y.float()
+    var = partition.sum_over_group(
+        y.square().sum(dim=-1, keepdim=True), mesh, tp) / width
+    return (y * torch.rsqrt(var + eps) * weight.float()).to(dtype)

@@ -10,6 +10,12 @@ global norm sums them in its order.
 tensors: the counterpart of the reference driver donating its state to the
 jitted step.  A functional update would hold a second copy of params, m
 and v, which at full width does not fit the card beside the first.
+
+Under a mesh the leaves are DTensors (a rank holds its slice of each):
+the update is elementwise, so each rank updates its local slices, the
+same arithmetic as on one device.  The clipping norm is the global norm:
+each leaf's local sum of squares, all-reduced over the mesh dims that
+shard it (not over those that replicate it, which would count it twice).
 """
 from __future__ import annotations
 
@@ -17,8 +23,10 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as tree_mod
+from repro_torch.sharding import partition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,10 +91,15 @@ def init(params) -> dict:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32, the leaves added
-    one after another in the reference's order."""
+    one after another in the reference's order; a DTensor leaf's local
+    sum all-reduced over the mesh axes that split it."""
     total = 0
     for g in tree_mod.leaves(tree):
-        total = total + g.float().square().sum()
+        sq = partition.local(g).float().square().sum()
+        if isinstance(g, DTensor):
+            sq = partition.all_reduce(sq, g.device_mesh,
+                                      partition.split_axes(g))
+        total = total + sq
     return torch.sqrt(total)
 
 
@@ -94,8 +107,9 @@ def global_norm(tree) -> torch.Tensor:
 def update(cfg: AdamWConfig, grads, opt_state, params):
     """One AdamW step, in place.  Returns (params, opt_state, metrics): the
     same param, m, v and count tensors, updated, and {"grad_norm", "lr"}.
-    The grads are read, never written."""
-    count = opt_state["count"]
+    The grads are read, never written.  DTensor leaves update their local
+    slices."""
+    count = partition.local(opt_state["count"])
     count.add_(1)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -104,9 +118,8 @@ def update(cfg: AdamWConfig, grads, opt_state, params):
     b2c = 1 - cfg.b2 ** count.float()
 
     mask = _decay_mask(params)
-    flat = zip(tree_mod.leaves(grads), tree_mod.leaves(params),
-               tree_mod.leaves(opt_state["m"]),
-               tree_mod.leaves(opt_state["v"]), mask)
+    flat = zip(*(map(partition.local, tree_mod.leaves(t)) for t in (
+        grads, params, opt_state["m"], opt_state["v"])), mask)
     for g, p, m, v, wd in flat:
         # fp32 working copies; for fp32 leaves these are the leaves
         # themselves, so the update lands in place

@@ -111,6 +111,37 @@ def _tree(source: str, drop_jax: bool = False) -> str:
     return ast.dump(tree)
 
 
+# modules of which some top-level definitions are copied, by name
+COPIED_DEFS = {"sharding/partition.py": (
+    "MeshAxes", "AxisRules", "flat_axes", "make_rules", "_ACTIVE",
+    "use_rules", "active_rules")}
+
+
+def _defs(source: str) -> dict:
+    """Each top-level def, class and assignment's AST, docstrings removed,
+    by name."""
+    out = {}
+    for node in _Docstrings().visit(ast.parse(source)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            for t in targets:
+                out[getattr(t, "id", "")] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("path,name", [
+    (p, n) for p, names in COPIED_DEFS.items() for n in names])
+def test_copied_definition_matches_reference(path, name):
+    """The copied definitions of a module the port otherwise rewrites."""
+    want = _defs(renamed((REF / path).read_text()))
+    got = _defs((PORT / path).read_text())
+    assert name in got and got[name] == want[name], \
+        f"{name} in src/repro_torch/{path} is no longer the reference's"
+
+
 @pytest.mark.parametrize("path", COPIED)
 def test_copied_module_matches_reference(path):
     """Comments and docstrings may be reworded; the code may not."""

@@ -24,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as ref_configs, core as ref_core  # noqa: E402
 from repro.core import bus as ref_bus, zoo as ref_zoo  # noqa: E402
+from repro.core import module as ref_module  # noqa: E402
 from repro.models import api as ref_api  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import AdmissionRejected, Daemon, PolicyConfig, \
@@ -240,16 +241,30 @@ def test_shell_binds_slots_to_devices():
     assert shell.slots[0].congruence_key == ((1, 1), ("data", "model"))
 
 
-def test_slot_over_two_gpus_raises_naming_distribution():
-    """A rectangle over two GPUs cannot host the port's one-device modules
-    yet.  (Built without streams: this machine may have no CUDA.)"""
-    slot = Slot.__new__(Slot)
-    slot.spec = SlotSpec("s0+s1", (0, 0), (1, 2))
-    slot.devices = np.array([torch.device("cuda", 0),
-                             torch.device("cuda", 1)], dtype=object)
-    slot.device = slot.devices.flat[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        AccelModule("m", zoo.build_sobel, [2]).place(slot, 2)
+def test_slot_over_two_gpus_has_a_stream_and_a_replica_per_device(
+        monkeypatch):
+    """A rectangle over two GPUs binds both: one stream on each (built here
+    with a stand-in for `torch.cuda.Stream`: this machine may have no
+    CUDA), and a module placed on a two-entry slot holds one weight
+    replica on each entry (two CPU entries here)."""
+    class FakeStream:
+        def __init__(self, device):
+            self.device = device
+
+    monkeypatch.setattr(torch.cuda, "Stream", FakeStream)
+    gpus = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    slot = Slot(SlotSpec("s0+s1", (0, 0), (1, 2)),
+                np.array([gpus], dtype=object), ("data", "model"))
+    assert slot.run_devices == gpus and slot.device == gpus[0]
+    assert [s.device for s in slot.streams] == gpus
+    assert slot.stream is slot.streams[0]
+    merged = _cpu_shell("host2_s2", 2).merged_slot([0, 1])
+    pl = AccelModule("matmul", zoo.build_matmul, [2]).place(merged, 2)
+    assert len(pl.replicas) == 2 and pl.weights_on_slot is pl.replicas[0]
+    for rep, dev in zip(pl.replicas, merged.run_devices):
+        assert rep["a"].device == dev
+        torch.testing.assert_close(rep["a"], pl.module.host_weights(2)["a"],
+                                   rtol=0, atol=0)
 
 
 def test_place_times_upload_and_warm_up_and_counts_cache_hits():
@@ -267,6 +282,89 @@ def test_place_times_upload_and_warm_up_and_counts_cache_hits():
         np.float32)
     torch.testing.assert_close(run_placement(first, x),
                                run_placement(second, x))
+
+
+# -- a slot of four CPU entries: split, run on each, gather ----------------
+
+
+def _zoo_case(name):
+    """(builder, chunk args, reference builder, tolerance against the
+    reference) of each zoo module, as the tests above take them."""
+    re, im = _mandel_inputs(0)
+    img = np.random.default_rng(2).random((1024, 1024)).astype(np.float32)
+    x = np.random.default_rng(4).standard_normal((512, 512)).astype(
+        np.float32)
+    toks = np.random.default_rng(5).integers(0, 256, (8, 64), dtype=np.int32)
+    return {"mandelbrot": (zoo.build_mandelbrot, (re, im), 0.0),
+            "sobel": (zoo.build_sobel, (img,), 1e-5),
+            "matmul": (zoo.build_matmul, (x,), 2e-5),
+            "lm-forward": (zoo.build_lm_forward, (toks,), 2e-2)}[name]
+
+
+def _ref_weights(name):
+    """The reference module's init weights, as numpy (None without)."""
+    prog = getattr(ref_zoo, f"build_{name.replace('-', '_')}")(_ref_mesh(), 1)
+    if prog.init_weights is None:
+        return None
+    return jax.tree.map(np.asarray, prog.init_weights(jax.random.PRNGKey(0)))
+
+
+def _on(slot, name, weights):
+    builder, args, _ = _zoo_case(name)
+    mod = AccelModule(name, builder, [slot.spec.shape[1]])
+    if weights is not None:
+        mod.program(slot, slot.spec.shape[1])
+        mod._host_weights[slot.spec.shape[1]] = convert.tree_from_numpy(
+            weights, CPU)
+    return run_placement(mod.place(slot, slot.spec.shape[1]), *args)
+
+
+ZOO = ["mandelbrot", "sobel", "matmul", "lm-forward"]
+
+
+@pytest.fixture(scope="module")
+def four_entry_runs():
+    shell = _cpu_shell("host4_s4", 4)
+    merged = shell.merged_slot([0, 1, 2, 3])
+    one = _cpu_shell().slots[0]
+    out = {}
+    for name in ZOO:
+        w = _ref_weights(name)
+        out[name] = (_on(merged, name, w), _on(one, name, w), w)
+    return out
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_four_entry_slot_equals_one_entry_slot_bit_for_bit(name,
+                                                           four_entry_runs):
+    """Each of the 4 entries runs a quarter of the rows (sobel with one
+    row of halo from each neighbour); the gathered output is the one-entry
+    slot's, bit for bit."""
+    four, one, _ = four_entry_runs[name]
+    assert four.shape == one.shape and four.dtype == one.dtype
+    np.testing.assert_array_equal(four.float().numpy(), one.float().numpy())
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_four_entry_slot_matches_reference_run_placement(name,
+                                                         four_entry_runs):
+    """Against the reference's `run_placement` of the same module and
+    weights, at the tolerances of the tests above."""
+    four, _, w = four_entry_runs[name]
+    _, args, tol = _zoo_case(name)
+    mod = ref_module.AccelModule(
+        name, getattr(ref_zoo, f"build_{name.replace('-', '_')}"), [1])
+    slot = ref_core.Shell(ref_core.uniform_shell("r1", (1, 1), 1)).slots[0]
+    mod.program(slot, 1)
+    if w is not None:
+        mod._host_weights[1] = jax.tree.map(jnp.asarray, w)
+    want = np.asarray(ref_module.run_placement(mod.place(slot, 1), *args),
+                      np.float32)
+    got = four.float().numpy()
+    if tol:
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 # -- the daemon on a CPU slot (tests/test_core_daemon.py's cases) ----------

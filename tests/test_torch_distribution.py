@@ -1,0 +1,700 @@
+"""The port's distribution against the reference's, on gloo ranks.
+
+Multi-rank runs are spawned (`tests/torch_ranks.py`): gloo ranks in a
+subprocess with a timeout of its own, a `FileStore` in the test's
+temporary directory (no port), one spawn per module-scoped fixture; the
+parametrised cases below assert its results.  The reference's sharded
+runs (`NamedSharding` shard indices, `moe_ep` under `shard_map`) run in
+a subprocess of their own with 8 host devices.
+
+1. Placements: every arch's params under the "train", "serve" and
+   "train_fsdp" rules, on a (2, 4) ("data", "model") mesh and a multi-pod
+   (2, 2, 2) ("pod", "data", "model") one: each rank's local shard is the
+   slice JAX gives the device at the same mesh coordinate.
+2. Models: 8 ranks on the (2, 4) mesh run the six archs of the
+   reference's `tests/test_distribution.py`: the loss under "train",
+   prefill and decode logits under "serve" (the decode at a cache length
+   the 4 sequence shards do not divide, at one they divide, and for llama
+   on the kernel route), held to the reference's single-device outputs at
+   its tolerances (2e-4, MoE 5e-3; 1e-3; 1e-3) and to the port's unsharded
+   run at 1e-5.  The reference's own sharded test is red on this jax
+   (ROADMAP C), so it is not the target.
+3. The sharded `moe_ep` at ep=4 with capacity 8.0: output against the
+   reference's `moe_dense` and its `moe_ep` on the same mesh, aux against
+   the latter, and the gradients against the port's one-device route.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import torch_ranks  # noqa: E402
+from repro import configs as ref_configs  # noqa: E402
+from repro.models import api as ref_api, io as ref_io  # noqa: E402
+from repro.models import moe as ref_moe, stack as ref_stack  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.models import api, convert, moe, stack  # noqa: E402
+from repro_torch.models.api import ShapeCell  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+MODEL_ARCHS = ["llama3.2-3b", "qwen3-moe-30b-a3b", "mamba2-780m",
+               "jamba-v0.1-52b", "whisper-large-v3", "phi-3-vision-4.2b"]
+MESHES = {"2x4": [[2, 4], ["data", "model"]],
+          "2x2x2": [[2, 2, 2], ["pod", "data", "model"]]}
+KINDS = ["train", "serve", "train_fsdp"]
+TIGHT = 1e-5
+
+
+def _rel_max(got, want) -> float:
+    """max |got - want| / max |want|, the reference test's measure."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-9))
+
+
+def _np32(tree):
+    """numpy, floats (bf16 too) as fp32, integers as they are."""
+    return jax.tree.map(
+        lambda a: np.asarray(a, np.float32)
+        if jnp.issubdtype(a.dtype, jnp.floating) else np.asarray(a), tree)
+
+
+# ---------------------------------------------------------------------------
+# the reference's sharded runs, in a subprocess with 8 host devices
+# ---------------------------------------------------------------------------
+
+_JAX_CODE = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import NamedSharding
+from repro import configs
+from repro.models import api, moe
+from repro.sharding import partition
+
+work = sys.argv[1]
+cases = json.load(open(os.path.join(work, "cases.json")))
+out = {}
+for mname, (shape, axes) in cases["meshes"].items():
+    mesh = jax.make_mesh(tuple(shape), tuple(axes))
+    coords = {d.id: [int(c) for c in idx]
+              for idx, d in np.ndenumerate(mesh.devices)}
+    for arch in cases["archs"]:
+        cfg = configs.get(arch, reduced=True)
+        table = api.param_table(cfg)
+        flat = jax.tree.flatten_with_path(
+            table, is_leaf=lambda x: isinstance(x, api.ParamSpec))[0]
+        for kind in cases["kinds"]:
+            rules = partition.make_rules(kind, multi_pod="pod" in axes)
+            for path, spec in flat:
+                key = "/".join(str(p.key) for p in path)
+                sh = NamedSharding(mesh, partition.to_pspec(spec.axes, rules))
+                idx = sh.devices_indices_map(spec.shape)
+                out[f"{arch}|{kind}|{mname}|{key}"] = {
+                    json.dumps(coords[d.id]): [
+                        [s.start or 0, spec.shape[i] if s.stop is None
+                         else s.stop] for i, s in enumerate(ix)]
+                    for d, ix in idx.items()}
+json.dump(out, open(os.path.join(work, "ref_indices.json"), "w"))
+
+m = np.load(os.path.join(work, "moe.npz"))
+spec = moe.MoESpec(**json.load(open(os.path.join(work, "moe.json"))))
+mesh = jax.make_mesh((2, 4), ("data", "model"))
+params = {k: jnp.asarray(m[k]) for k in ("w_router", "w1", "w3", "w2")}
+with jax.set_mesh(mesh):
+    y, aux = jax.jit(lambda p, x: moe.moe_ep(p, x, spec, mesh, ("data",)))(
+        params, jnp.asarray(m["x"]))
+np.savez(os.path.join(work, "ref_moe_ep.npz"), y=np.asarray(y),
+         aux=np.asarray(aux))
+print("JAX_OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def work(tmp_path_factory):
+    return tmp_path_factory.mktemp("dist")
+
+
+MOE_SPEC = dict(n_experts=8, top_k=2, d_ff=32, capacity_factor=8.0)
+
+
+@pytest.fixture(scope="module")
+def reference_sharded(work):
+    """The reference's shard indices and its sharded `moe_ep`."""
+    cases = {"archs": configs.ARCH_IDS, "kinds": KINDS, "meshes": MESHES}
+    (work / "cases.json").write_text(json.dumps(cases))
+    rng = np.random.default_rng(7)
+    d = 64
+    m = {"x": rng.standard_normal((4, 8, d)).astype(np.float32),
+         "r": rng.standard_normal((4, 8, d)).astype(np.float32),
+         "w_router": rng.standard_normal((d, 8)).astype(np.float32),
+         "w1": (0.2 * rng.standard_normal((8, d, 32))).astype(np.float32),
+         "w3": (0.2 * rng.standard_normal((8, d, 32))).astype(np.float32),
+         "w2": (0.2 * rng.standard_normal((8, 32, d))).astype(np.float32)}
+    np.savez(work / "moe.npz", **m)
+    (work / "moe.json").write_text(json.dumps(MOE_SPEC))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", _JAX_CODE, str(work)],
+                         env=env, capture_output=True, text=True,
+                         timeout=torch_ranks.TIMEOUT_S)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    with np.load(work / "ref_moe_ep.npz") as f:
+        ref_ep = dict(f)
+    return {"indices": json.loads((work / "ref_indices.json").read_text()),
+            "moe_inputs": m, "moe_ep": ref_ep}
+
+
+# ---------------------------------------------------------------------------
+# 1. placements
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def placements(work, reference_sharded):
+    return torch_ranks.run("placements", 8, work)
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_local_shards_are_jax_shard_slices(arch, kind, mesh_name,
+                                           placements, reference_sharded):
+    ref = reference_sharded["indices"]
+    prefix = f"{arch}|{kind}|{mesh_name}|"
+    keys = [k for k in ref if k.startswith(prefix)]
+    assert keys
+    sharded = 0
+    for key in keys:
+        for rank_out in placements:
+            coord, slices, ok = rank_out[key]
+            assert ok, (key, coord)
+            assert [list(s) for s in slices] == \
+                ref[key][json.dumps(list(coord))], (key, coord)
+        sharded += len({json.dumps(r[key][1]) for r in placements}) > 1
+    assert sharded      # the rules split something on this mesh
+
+
+# ---------------------------------------------------------------------------
+# 2. models
+# ---------------------------------------------------------------------------
+
+
+def _ref_cfg(arch):
+    cfg = dataclasses.replace(ref_configs.get(arch, reduced=True),
+                              param_dtype=jnp.float32,
+                              compute_dtype=jnp.float32,
+                              kv_dtype=jnp.float32)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl="ep", capacity_factor=8.0))
+    return cfg
+
+
+def _dense(cfg):
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl="dense"))
+
+
+def _reference_single_device(arch):
+    """The reference test's single-device numbers (dense MoE oracle), and
+    the inputs, as numpy."""
+    cfg = _ref_cfg(arch)
+    ref_cfg = _dense(cfg)
+    params = ref_api.init_params(cfg, jax.random.PRNGKey(0))
+    batch = ref_io.make_batch(cfg, ref_io.smoke_cell("train", b=4, s=32),
+                              jax.random.PRNGKey(1))
+    loss = float(jax.jit(ref_stack.build_loss_fn(ref_cfg))(params, batch))
+    s = 16
+    pbatch = ref_io.make_batch(cfg, ref_io.smoke_cell("prefill", b=4, s=s),
+                               jax.random.PRNGKey(2))
+    cache, plogits = jax.jit(ref_stack.build_prefill_fn(
+        ref_cfg, max_len=s + 2))(params, pbatch)
+    tok = jnp.argmax(plogits, -1)[:, None].astype(jnp.int32)
+    _, _, dlogits = jax.jit(ref_stack.build_decode_fn(ref_cfg))(
+        params, cache, tok, jnp.int32(s))
+    return {"params": _np32(params), "batch": _np32(batch),
+            "pbatch": _np32(pbatch), "tok": np.asarray(tok),
+            "loss": loss, "prefill": np.asarray(plogits),
+            "decode": np.asarray(dlogits)}
+
+
+def _port_unsharded(arch, ref):
+    cfg = convert.config_from_fields(dataclasses.asdict(_ref_cfg(arch)))
+    params = convert.params_from_numpy(ref["params"], cfg, "cpu")
+
+    def tens(tree):
+        return {k: torch.from_numpy(v.copy()) for k, v in tree.items()}
+    s = ref["pbatch"]["tokens"].shape[1]
+    with torch.inference_mode():
+        loss = float(stack.build_loss_fn(cfg)(params, tens(ref["batch"])))
+        cache, plogits = stack.build_prefill_fn(cfg, max_len=s + 2)(
+            params, tens(ref["pbatch"]))
+        _, _, dlogits = stack.build_decode_fn(cfg)(
+            params, cache, torch.from_numpy(ref["tok"]), s)
+    return {"loss": loss, "prefill": plogits.numpy(),
+            "decode": dlogits.numpy()}
+
+
+@pytest.fixture(scope="module")
+def models(work):
+    refs, ports = {}, {}
+    for arch in MODEL_ARCHS:
+        ref = _reference_single_device(arch)
+        refs[arch], ports[arch] = ref, _port_unsharded(arch, ref)
+        torch_ranks.save_tree(work / f"{arch}_params.npz", ref["params"])
+        io_np = {f"t_{k}": v for k, v in ref["batch"].items()}
+        io_np.update({f"p_{k}": v for k, v in ref["pbatch"].items()})
+        io_np["tok"] = ref["tok"]
+        torch_ranks.save_tree(work / f"{arch}_io.npz", io_np)
+    (work / "models.json").write_text(json.dumps({"archs": MODEL_ARCHS}))
+    ranks = torch_ranks.run("models", 8, work)
+    return refs, ports, ranks
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_sharded_loss_matches_single_device(arch, models):
+    refs, ports, ranks = models
+    tol = 5e-3 if "moe" in arch or "jamba" in arch else 2e-4
+    for r in ranks:
+        got = r[f"{arch}/train_loss"]
+        assert _rel_max(got, refs[arch]["loss"]) <= tol
+        assert got == ranks[0][f"{arch}/train_loss"]
+        if tol == 2e-4:     # MoE: aux is a mean of the ranks' own (5e-3)
+            assert _rel_max(got, ports[arch]["loss"]) <= TIGHT
+
+
+SERVE_CASES = [(arch, what, variant) for arch in MODEL_ARCHS
+               for what in ("prefill", "decode")
+               for variant in ("", "_even", "_pallas")
+               if variant != "_pallas"
+               or arch in ("llama3.2-3b", "phi-3-vision-4.2b")]
+
+
+@pytest.mark.parametrize("arch,what,variant", SERVE_CASES)
+def test_sharded_serving_matches_single_device(arch, what, variant, models):
+    """"": 18 cache rows over 4 sequence shards (5, 5, 5, 3: the pad
+    path); "_even": 20 rows (the update-inside body); "_pallas": the
+    decode kernel's route, the cache gathered over the shards (llama's
+    attention whole, phi-3-vision's on its share of the heads)."""
+    refs, ports, ranks = models
+    key = f"{arch}/{what}_logits{variant}"
+    for r in ranks:
+        got = r[key].numpy()
+        assert _rel_max(got, refs[arch][what]) <= 1e-3
+        assert _rel_max(got, ports[arch][what]) <= TIGHT
+        np.testing.assert_array_equal(got, ranks[0][key].numpy())
+
+
+# ---------------------------------------------------------------------------
+# 3. the sharded moe_ep
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sharded_moe(work, reference_sharded):
+    return torch_ranks.run("moe", 8, work)
+
+
+def _moe_one_device(inp):
+    spec = moe.MoESpec(**dict(MOE_SPEC, impl="ep"))
+    leaves = {k: torch.from_numpy(inp[k].copy()).requires_grad_()
+              for k in ("x", "w_router", "w1", "w3", "w2")}
+    y, aux = moe.moe_ep(leaves, leaves["x"], spec)
+    (y * torch.from_numpy(inp["r"])).sum().backward()
+    return y.detach().numpy(), float(aux), {
+        k: v.grad.numpy() for k, v in leaves.items()}
+
+
+def test_sharded_moe_ep_matches_the_oracle_and_reference(sharded_moe,
+                                                         reference_sharded):
+    inp = reference_sharded["moe_inputs"]
+    spec = ref_moe.MoESpec(**MOE_SPEC)
+    y_dense, _ = ref_moe.moe_dense(
+        {k: jnp.asarray(inp[k]) for k in ("w_router", "w1", "w3", "w2")},
+        jnp.asarray(inp["x"]), spec)
+    for r in sharded_moe:
+        np.testing.assert_allclose(r["y"].numpy(), np.asarray(y_dense),
+                                   atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(r["y"].numpy(),
+                                   reference_sharded["moe_ep"]["y"],
+                                   atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(r["aux"],
+                                   reference_sharded["moe_ep"]["aux"],
+                                   atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("leaf", ["x", "w_router", "w1", "w3", "w2"])
+def test_sharded_moe_ep_gradients_match_one_device(leaf, sharded_moe,
+                                                   reference_sharded):
+    _, _, grads = _moe_one_device(reference_sharded["moe_inputs"])
+    for r in sharded_moe:
+        np.testing.assert_allclose(r["g" + leaf].numpy(), grads[leaf],
+                                   atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# 5. training on 4 ranks: the sharded step, checkpoints, the elastic switch
+# ---------------------------------------------------------------------------
+
+from repro.ckpt import checkpoint as ref_ckpt  # noqa: E402
+from repro_torch import tree as tree_mod  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch.train import TrainRun, train  # noqa: E402
+from repro_torch.optim import adamw, grad_compress as gc  # noqa: E402
+
+OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+TRAIN_TAGS = ["p0_c0", "p0_c1", "p1_c0", "p1_c1"]
+
+
+def _rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                  1e-30))
+
+
+def _one_device_step(cfg, params_np, tokens, compress):
+    params = convert.params_from_numpy(params_np, cfg, "cpu")
+    params = tree_mod.tree_map(lambda t: t.clone(), params)
+    state = {"params": params, "opt": adamw.init(params)}
+    if compress:
+        state["ef"] = gc.init_error_feedback(params)
+    step = steps.build_train_step(cfg, adamw.AdamWConfig(**OPT),
+                                  grad_compress=compress)
+    state, metrics = step(state, {"tokens": torch.from_numpy(tokens)})
+    return state, float(metrics["loss"]), float(metrics["grad_norm"])
+
+
+@pytest.fixture(scope="module")
+def training(work):
+    cfg_ref = _ref_cfg("llama3.2-3b")
+    params = _np32(ref_api.init_params(cfg_ref, jax.random.PRNGKey(0)))
+    tokens = np.random.default_rng(3).integers(
+        0, cfg_ref.vocab, (4, 16)).astype(np.int32)
+    torch_ranks.save_tree(work / "train_params.npz", params)
+    torch_ranks.save_tree(work / "train_io.npz", {"tokens": tokens})
+    # a reference checkpoint of a state with every leaf distinct
+    jp = jax.tree.map(jnp.asarray, params)
+    ref_state = {"params": jp,
+                 "opt": {"m": jax.tree.map(lambda a: a * 0.5, jp),
+                         "v": jax.tree.map(lambda a: a * a, jp),
+                         "count": jnp.int32(3)}}
+    ref_ckpt.CheckpointManager(work / "ck_ref").save(3, ref_state,
+                                                     blocking=True)
+    (work / "train.json").write_text(json.dumps({"opt": OPT,
+                                                 "ref_step": 3}))
+    cfg = convert.config_from_fields(dataclasses.asdict(cfg_ref))
+    one = {c: _one_device_step(cfg, params, tokens, c) for c in (0, 1)}
+    ranks = torch_ranks.run("train", 4, work)
+    return {"one": one, "ranks": ranks, "ref_state": ref_state,
+            "work": work}
+
+
+@pytest.mark.parametrize("tag", TRAIN_TAGS)
+def test_sharded_train_step_matches_one_device(tag, training):
+    """Loss and grad norm within 1e-5, on each of the 4 ranks.  Without
+    compression every param, m (the step's scaled gradient) and v within
+    1e-4 relative L2.  With it the gradient is rounded to int8 levels, and
+    a 1e-7 change of an input that sits at a rounding boundary moves it a
+    whole level: there every m and error-feedback element is held to one
+    level (its row's absmax / 127), and at most 0.1% of any leaf's
+    elements may differ by more than 1e-5 of its scale (the gradient's,
+    for the error feedback)."""
+    state, loss, gnorm = training["one"][int(tag[-1])]
+    want = dict(tree_mod.leaves_with_paths(state))
+    b1 = adamw.AdamWConfig().b1
+    clip = min(1.0, adamw.AdamWConfig(**OPT).clip_norm / (gnorm + 1e-9))
+    for r in training["ranks"]:
+        got = r[tag]
+        assert abs(got["loss"] - loss) <= 1e-5 * abs(loss)
+        assert abs(got["grad_norm"] - gnorm) <= 1e-5 * abs(gnorm)
+        for path, leaf in tree_mod.leaves_with_paths(got["state"]):
+            g, w = leaf.numpy(), want[path].numpy()
+            if tag.endswith("c0"):
+                assert _rel_l2(g, w) <= 1e-4, path
+                continue
+            diff = np.abs(g - w)
+            ref = w
+            if path[0] == "ef" or path[:2] == ("opt", "m"):
+                ef = path[0] == "ef"
+                m = want[("opt", "m") + path[1:]].numpy() if ef else w
+                # m = (1 - b1) * clip * the decompressed gradient; the
+                # error feedback is a residual of that gradient
+                scale = (1 - b1) * clip
+                ref = m / scale if ef else m
+                level = np.abs(m / scale).max(axis=-1, keepdims=True) / 127
+                bound = level if ef else scale * level
+                assert (diff <= 1.01 * bound + 1e-12).all(), path
+            assert np.mean(diff > 1e-5 * np.abs(ref).max()) <= 1e-3, path
+
+
+def test_four_rank_checkpoint_restores_in_the_reference_bit_for_bit(
+        training):
+    full = training["ranks"][0]["p0_c1"]["state"]
+    like = jax.tree.map(lambda t: jax.ShapeDtypeStruct(
+        tuple(t.shape), np.dtype(str(t.dtype).removeprefix("torch."))),
+        full)
+    got = ref_ckpt.CheckpointManager(training["work"] / "ck_port").restore(
+        1, like)
+    for path, leaf in tree_mod.leaves_with_paths(full):
+        np.testing.assert_array_equal(
+            np.asarray(got[path[0]] if len(path) == 1
+                       else _at(got, path)), leaf.numpy())
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("phase", [0, 1])
+def test_reference_checkpoint_restores_onto_placements(phase, training):
+    """Each rank's restore, gathered, is the reference's saved state bit
+    for bit; phase 1 (the elastic flip of `embed`) holds `wo` whole on
+    every rank, phase 0 a quarter of its embed dim."""
+    want = training["ref_state"]
+    d = want["params"]["blocks"]["sub0"]["attn"]["wo"].shape[-1]
+    for r in training["ranks"]:
+        got = r[f"restored_p{phase}"]
+        for path, leaf in tree_mod.leaves_with_paths(got):
+            np.testing.assert_array_equal(leaf.numpy(),
+                                          np.asarray(_at(want, path)))
+        local = r[f"restored_p{phase}_local"]["wo"]
+        assert local.shape[-1] == (d if phase else d // 4)
+
+
+def test_elastic_switch_on_four_ranks(training):
+    """The reference's `test_train_elastic_repartition` assertions, on 4
+    ranks, and the losses of the one-device driver (bf16 compute: 2e-2)."""
+    out = training["ranks"][0]["elastic"]
+    hist = out["hist"]
+    assert hist["elastic_switches"] == 1
+    assert hist["final_step"] == 16
+    assert "[train] restored step 8 (phase 1)" in out["logs"]
+    one = train(TrainRun(arch="granite-3-8b", steps=16, global_batch=4,
+                         seq_len=32, ckpt_dir=str(training["work"] / "ck1"),
+                         elastic_switch_step=8, log_every=1, device="cpu"),
+                log=lambda *_: None)
+    got, want = dict(hist["loss"]), dict(one["loss"])
+    assert sorted(got) == sorted(want) == list(range(16))
+    for step in want:
+        assert abs(got[step] - want[step]) <= 2e-2 * abs(want[step]), step
+    for r in training["ranks"][1:]:
+        assert r["elastic"]["logs"] == []       # one rank speaks
+        assert dict(r["elastic"]["hist"]["loss"]) == got
+
+
+# ---------------------------------------------------------------------------
+# one process: the masked-sum gold logit, the cell's placements
+# ---------------------------------------------------------------------------
+
+from repro.launch import steps as ref_steps  # noqa: E402
+from repro.sharding import partition as ref_partition  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.sharding import partition  # noqa: E402
+from torch.distributed.tensor import Shard  # noqa: E402
+from torch.distributed.tensor.placement_types import Placement  # noqa: E402
+
+
+def test_gold_logit_is_the_gathered_logit_exactly():
+    """The loss's masked sum over the vocab (the reference's
+    `_gold_logit`) gives the gathered logit to the bit, forward and
+    backward."""
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn(3, 7, 300, generator=gen).requires_grad_()
+    targets = torch.randint(0, 300, (3, 7), generator=gen)
+    upstream = torch.randn(3, 7, generator=gen)
+    got = stack._gold_logit(logits, targets)
+    (g_got,) = torch.autograd.grad((got * upstream).sum(), logits)
+    want = logits.gather(-1, targets[..., None])[..., 0]
+    (g_want,) = torch.autograd.grad((want * upstream).sum(), logits)
+    assert torch.equal(got, want) and torch.equal(g_got, g_want)
+
+
+def _ranks_per_mesh_dim(placements, names):
+    """{mesh axis: tensor dim it shards} of one placement list."""
+    return {n: p.dim for n, p in zip(names, placements)
+            if isinstance(p, Shard)}
+
+
+def _ref_axes(pspec):
+    """{mesh axis: tensor dim} of a reference PartitionSpec."""
+    out = {}
+    for d, entry in enumerate(pspec):
+        for a in ref_partition.flat_axes(entry):
+            out[a] = d
+    return out
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "jamba-v0.1-52b",
+                                  "whisper-large-v3"])
+def test_cell_placements_are_the_reference_cell_shardings(arch, kind):
+    """`steps.cell_placements` on a one-rank (1, 1) mesh names, for every
+    input and output leaf of the cell's step, the tensor dim each mesh
+    axis splits, as the reference's `cell_shardings` does;
+    `abstract_inputs` gives the reference's shapes."""
+    mesh_mod.init_distributed("cpu")
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"))
+    rules = partition.make_rules("train" if kind == "train" else "serve")
+    cell = ShapeCell(kind, 64, 4, kind)
+    cfg = configs.get(arch, reduced=True)
+    got_in, got_out = steps.cell_placements(cfg, cell, mesh, rules)
+    ref_cfg = ref_configs.get(arch, reduced=True)
+    ref_cell = ref_api.ShapeCell(kind, 64, 4, kind)
+    jmesh = jax.make_mesh((1, 1), ("data", "model"))
+    ref_rules = ref_partition.make_rules(
+        "train" if kind == "train" else "serve")
+    ref_in, ref_out, _ = ref_steps.cell_shardings(ref_cfg, ref_cell, jmesh,
+                                                  ref_rules)
+    names = ("data", "model")
+
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in flat(tree[k])]
+        if isinstance(tree, (list, tuple)) and tree and not isinstance(
+                tree[0], Placement):
+            return [x for t in tree for x in flat(t)]
+        return [tree]
+
+    for got, want in ((got_in, ref_in), (got_out, ref_out)):
+        g = [_ranks_per_mesh_dim(p, names) for p in flat(got)]
+        w = [_ref_axes(s.spec) for s in jax.tree.leaves(want)]
+        assert g == w
+    shapes = [tuple(t.shape) for t in flat(steps.abstract_inputs(cfg, cell))]
+    ref_shapes = [tuple(s.shape) for s in jax.tree.leaves(
+        ref_steps.abstract_inputs(ref_cfg, ref_cell))]
+    assert shapes == ref_shapes
+
+
+# ---------------------------------------------------------------------------
+# 6. tensor parallelism and FSDP: 8 ranks train, each computing its share
+# ---------------------------------------------------------------------------
+
+TP_ARCHS = ["llama3.2-3b", "mamba2-780m", "whisper-large-v3",
+            "phi-3-vision-4.2b"]
+TP_CASES = [(a, k) for a in TP_ARCHS for k in ("train", "train_fsdp")]
+
+
+def _one_device_grads(cfg, params_np, batch):
+    """The port's unsharded step: loss, grad norm, the gradient taken."""
+    params = tree_mod.tree_map(lambda t: t.clone(),
+                               convert.params_from_numpy(params_np, cfg,
+                                                         "cpu"))
+    seen = []
+    real_update = adamw.update
+
+    def spy(opt_cfg, grads, opt_state, params):
+        seen.append(tree_mod.tree_map(lambda g: g.clone(), grads))
+        return real_update(opt_cfg, grads, opt_state, params)
+    step = steps.build_train_step(cfg, adamw.AdamWConfig(**OPT))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(adamw, "update", spy)
+        _, metrics = step({"params": params, "opt": adamw.init(params)},
+                          {k: torch.from_numpy(v.copy())
+                           for k, v in batch.items()})
+    return float(metrics["loss"]), float(metrics["grad_norm"]), seen[0]
+
+
+@pytest.fixture(scope="module")
+def train_tp(work, models):
+    """The ranks' steps and layouts (`torch_ranks.job_train_tp`, on the
+    params and batches `models` wrote) and the one-device steps."""
+    refs = models[0]
+    (work / "train_tp.json").write_text(json.dumps({"archs": TP_ARCHS,
+                                                    "opt": OPT}))
+    ranks = torch_ranks.run("train_tp", 8, work)
+    one = {}
+    for arch, kind in TP_CASES:
+        cfg = convert.config_from_fields(dataclasses.asdict(_ref_cfg(arch)))
+        batch = refs[arch]["batch"]
+        if kind == "train_fsdp":    # 8 rows: one a rank
+            batch = {k: np.concatenate([v, v]) for k, v in batch.items()}
+        one[arch, kind] = _one_device_grads(cfg, refs[arch]["params"], batch)
+    return ranks, one
+
+
+@pytest.mark.parametrize("arch,kind", TP_CASES)
+def test_sharded_train_step_splits_and_matches_one_device(arch, kind,
+                                                          train_tp):
+    """One step on the (2, 4) mesh: under "train" each rank gathers the
+    FSDP dims of a layer group's params, computes its attention heads
+    (where they split into whole heads), MLP units, SSM heads and vocab
+    rows over "model", and sums the partial outputs; under "train_fsdp"
+    it gathers everything over all 8 ranks.  Loss and grad norm within
+    1e-5 of one device, every gradient leaf within 1e-4 relative L2, on
+    every rank."""
+    ranks, one = train_tp
+    loss, gnorm, grads = one[arch, kind]
+    want = dict(tree_mod.leaves_with_paths(grads))
+    for r in ranks:
+        got = r[f"{arch}/{kind}"]
+        assert abs(got["loss"] - loss) <= TIGHT * abs(loss)
+        assert abs(got["grad_norm"] - gnorm) <= TIGHT * abs(gnorm)
+        for path, g in tree_mod.leaves_with_paths(got["grads"]):
+            assert _rel_l2(g.numpy(), want[path].numpy()) <= 1e-4, path
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+@pytest.mark.parametrize("kind", ["train", "train_fsdp", "serve"])
+def test_each_rank_holds_and_computes_with_its_share(arch, kind, train_tp):
+    """What rank 0 holds of the first layer group and of the embedding,
+    and what it computes with: a dim split over "data" (FSDP: embed under
+    "train", every rule's dim under "train_fsdp") is gathered, a dim
+    split over "model" stays a quarter where the layer computes on it
+    (attention only where the q and kv heads split into whole heads:
+    reduced llama's 2 kv heads do not split 4 ways, so its attention
+    gathers)."""
+    ranks, _ = train_tp
+    cfg = configs.get(arch, reduced=True)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    tp = ranks[0][f"{arch}/{kind}/tp"]
+    held = {k: h for k, (h, _) in ranks[0][f"{arch}/{kind}/shapes"].items()}
+    used = {k: c for k, (_, c) in ranks[0][f"{arch}/{kind}/shapes"].items()}
+    if kind == "train_fsdp":
+        assert all(axes == () for axes in tp.values()), tp
+        assert held["embed/tok"] == (v, d // 8)
+        whole = {k: spec.shape for k, spec in api.flatten(
+            api.param_table(cfg))}
+        for k, shape in used.items():
+            assert shape == whole[k if k == "embed/tok"
+                                  else "blocks/" + k][-len(shape):], k
+        return
+    fsdp = 2 if kind == "train" else 1
+    assert tp["mlp"] == tp["vocab"] == ("model",), tp
+    assert held["embed/tok"] == (v // 4, d // fsdp)
+    assert used["embed/tok"] == (v // 4, d)
+    if cfg.family == "ssm":
+        di = cfg.mamba_spec.d_inner
+        assert tp["ssm"] == ("model",)
+        assert held["sub0/mamba/w_x"] == (d // fsdp, di // 4)
+        assert used["sub0/mamba/w_x"] == (d, di // 4)
+        assert used["sub0/mamba/w_out"] == (di // 4, d)
+        assert used["sub0/mamba/w_bc"] == (d, cfg.mamba_spec.bc_dim)
+        return
+    assert held["sub0/mlp/w_up"] == (d // fsdp, f // 4)
+    assert used["sub0/mlp/w_up"] == (d, f // 4)
+    assert used["sub0/mlp/w_down"] == (f // 4, d)
+    hq = cfg.n_heads * cfg.head_dim
+    assert held["sub0/attn/wq"] == (d // fsdp, hq // 4)
+    if cfg.n_kv_heads % 4 == 0:
+        assert tp["attn"] == ("model",)
+        assert used["sub0/attn/wq"] == (d, hq // 4)
+        assert used["sub0/attn/wo"] == (hq // 4, d)
+    else:
+        assert tp["attn"] == ()
+        assert used["sub0/attn/wq"] == (d, hq)

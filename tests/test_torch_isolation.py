@@ -51,7 +51,11 @@ def test_importing_the_port_loads_no_jax_or_reference():
                  "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
                  "repro_torch.ckpt.fault", "repro_torch.launch.steps",
                  "repro_torch.launch.train", "repro_torch.analysis.walker",
-                 "repro_torch.analysis.__main__"):
+                 "repro_torch.analysis.__main__",
+                 # distribution
+                 "repro_torch.sharding.partition",
+                 "repro_torch.sharding.pipeline_parallel",
+                 "repro_torch.launch.mesh", "repro_torch.configs.common"):
         assert name in names.split(), names
 
 
@@ -92,3 +96,26 @@ def test_init_train_state_without_cuda_raises_instead_of_using_the_cpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         steps.init_train_state(configs.get("llama3.2-3b", reduced=True),
                                torch.Generator().manual_seed(0))
+
+
+def test_init_distributed_without_cuda_raises_instead_of_using_gloo():
+    """The process-group helper defaults to CUDA (NCCL) and does not fall
+    back to the CPU: no group is made."""
+    _no_cuda()
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    initialized = dist.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh.init_distributed()
+    assert dist.is_initialized() == initialized
+
+
+def test_train_under_a_mesh_without_cuda_raises_before_any_group():
+    """train() builds its mesh over the world's ranks; without CUDA the
+    default device raises before a process group exists."""
+    _no_cuda()
+    import torch.distributed as dist
+    initialized = dist.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(TrainRun(elastic_switch_step=2, steps=4), log=lambda _: None)
+    assert dist.is_initialized() == initialized

@@ -626,6 +626,50 @@ def test_train_step_bf16_loss_near_reference(arch):
                                rtol=2e-2)
 
 
+@pytest.mark.parametrize("cast_once", [True, False])
+def test_train_step_bf16_cast_placement_equals_reference(cast_once):
+    """One bf16 step of reduced llama from the same state, with each fp32
+    matrix cast once a step (`cast_params_once=True`) or where each layer
+    uses it (False), against the reference's step with the same flag: the
+    loss, the grad norm and every gradient the optimizer took.  bf16
+    products round alike in both packages but sum in another order, so
+    they are held to bf16's scale (2e-2)."""
+    arch = "llama3.2-3b"
+    ref_cfg = _ref_cfg(arch, "bf16")
+    cfg = _port_cfg(ref_cfg)
+    batch = _tokens(ref_cfg.vocab)
+    params = jax.tree.map(jnp.asarray, _ref_params_np(arch))
+    state = {"params": params, "opt": ref_adamw.init(params)}
+    opt_cfg = ref_adamw.AdamWConfig(lr=LR, warmup_steps=1, total_steps=10)
+    before = jax.tree.map(np.array, state)
+    step = _compiled(ref_steps.build_train_step(
+        ref_cfg, opt_cfg, cast_params_once=cast_once), state,
+        {"tokens": jnp.asarray(batch)})
+    after, metrics = step(state, {"tokens": jnp.asarray(batch)})
+    rnorm = float(metrics["grad_norm"])
+    rgrads = _taken_grads(opt_cfg, before, jax.tree.map(np.array, after),
+                          rnorm)
+    port = steps.build_train_step(
+        cfg, adamw.AdamWConfig(lr=LR, warmup_steps=1, total_steps=10),
+        cast_params_once=cast_once)
+    seen = []
+    real_update = adamw.update
+
+    def spy(opt_cfg, grads, opt_state, params):
+        seen.append(tree_mod.tree_map(lambda g: g.clone(), grads))
+        return real_update(opt_cfg, grads, opt_state, params)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(adamw, "update", spy)
+        _, m = port(_port_state(before, cfg),
+                    {"tokens": torch.from_numpy(batch)})
+    np.testing.assert_allclose(float(m["loss"]), float(metrics["loss"]),
+                               rtol=2e-2)
+    np.testing.assert_allclose(float(m["grad_norm"]), rnorm, rtol=2e-2)
+    for (path, g), rg in zip(tree_mod.leaves_with_paths(seen[0]),
+                             jax.tree.leaves(rgrads)):
+        assert _rel(g.numpy(), rg) <= 2e-2, path
+
+
 def test_train_step_grad_compress_equals_reference():
     """llama with int8 compression: as the fp32 steps, the gradients
     compared being the round-tripped ones the optimizer takes (a value an
