@@ -151,7 +151,20 @@ the final `{"ok": true, ...}` line from printing:
      (d)'s on its weights and tokens; (e) the mamba2-780m forward at full
      width and depth over the mesh: exactly 48 SSD launches, hidden state
      within 2e-5 of the one-device forward.
-Each of phases 3-6 and 8-14 sets every launch count to 0 just before it
+ 15. the dry run against the card (after 14, before 7): (a) `python -m
+     repro_torch.launch.dryrun --arch llama3.2-3b --shape all --mesh
+     single` in a subprocess that sees no GPU (DRYRUN_TIMEOUT_S): exit 0,
+     roofline terms for train_4k, prefill_32k and decode_32k on 256 fake
+     ranks, the reference's skip record for long_500k; meanwhile (b)
+     phase 13's train step (full width and depth, B=2, S=512, bf16
+     compute, fp32 masters, unsharded) and (c) phase 3's prefill (B=4,
+     1024 tokens, fp32, plain attention) are traced at world size 1 and
+     run on the card: counted FLOPs within 2% of torch.profiler's
+     products (`with_flops`), (b)'s predicted argument + temp bytes
+     within 10% of `max_memory_allocated` over its steps, no kernel
+     launched; step and prefill ms (CUDA events), achieved FLOP/s and
+     the roofline terms at the H100's peaks are printed with the card.
+Each of phases 3-6 and 8-15 sets every launch count to 0 just before it
 drives a path and reads the counts just after.  Phase 7 (run last) also
 times the decode kernel at jamba's, qwen3-moe's, whisper's and
 phi-3-vision's heads, the flash kernel at their forward shapes and the
@@ -2536,6 +2549,220 @@ def _dist_slot(smoke, res, world) -> None:
           f"launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# (a)'s subprocess: the dry run of llama3.2-3b's cells on 256 fake ranks
+DRYRUN_TIMEOUT_S = 85
+# the products torch.profiler counts FLOPs for (with_flops) that the dry
+# run counts too (`torch.utils.flop_counter`'s registry); the profiler
+# also counts the elementwise aten::mul and aten::add, the dry run not
+MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def phase_dryrun(smoke: Smoke) -> None:
+    """(a) `python -m repro_torch.launch.dryrun` over llama3.2-3b's four
+    cells in a subprocess that sees no GPU, while (b) and (c) run the
+    counting code at world size 1 against the card: phase 13's train step
+    and phase 3's prefill, counted FLOPs against torch.profiler's and
+    (the step) the predicted argument + temp bytes against
+    max_memory_allocated."""
+    import os
+    res = smoke.results.setdefault("dryrun", {})
+    res["card"] = card_line()
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LLAMA,
+         "--shape", "all", "--mesh", "single", "--out", out_dir],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        _part(smoke, "15b train step: counted vs the card",
+              lambda: _dryrun_train(smoke, res))
+        _part(smoke, "15c prefill: counted vs the card",
+              lambda: _dryrun_prefill(smoke, res))
+    finally:
+        left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
+        try:
+            log, _ = proc.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+    _part(smoke, "15a dry run of the llama cells",
+          lambda: _dryrun_cells(smoke, res, proc.returncode, log, out_dir,
+                                time.perf_counter() - t0))
+
+
+def _dryrun_cells(smoke, res, rc, log, out_dir, wall) -> None:
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import SHAPE_CELLS
+    print("\n".join(log.splitlines()[-30:]))
+    smoke.check("15a dry run: exit code 0", rc == 0,
+                f"rc={rc} after {wall:.1f} s")
+    cells = res["cells"] = {"wall_s": wall}
+    for name in SHAPE_CELLS:
+        path = Path(out_dir) / "single" / LLAMA / f"{name}.json"
+        if not path.exists():
+            smoke.check(f"15a dry run: {name} written", False)
+            continue
+        cell = json.loads(path.read_text())
+        if name == "long_500k":
+            want = {"arch": LLAMA, "cell": name, "mesh": "single",
+                    "skipped": dryrun.FULL_ATTENTION_SKIP, "tag": "baseline"}
+            smoke.check("15a dry run: long_500k skipped as the reference",
+                        cell == want, json.dumps(cell))
+            continue
+        roof = cell.get("roofline", {})
+        terms = [roof.get(k) for k in ("compute_s", "memory_s",
+                                       "collective_s", "roofline_fraction")]
+        ok = all(isinstance(t, float) and np.isfinite(t) and t > 0
+                 for t in terms) and cell.get("chips") == 256
+        cells[name] = {"roofline": roof, "memory": cell["full"]["memory"],
+                       "trace_s": cell["full"]["trace_s"]}
+        smoke.check(f"15a dry run: {name} has roofline terms", ok,
+                    f"compute {terms[0]!r} s, memory {terms[1]!r} s, "
+                    f"collective {terms[2]!r} s, fraction {terms[3]!r}")
+
+
+def _profiled_matmul_flops(fn) -> float | str:
+    """torch.profiler's FLOPs of the matrix products in one call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    flops = sum(e.flops for e in prof.key_averages() if e.key in MATMUL_OPS)
+    return float(flops) if flops else "not measured"
+
+
+def _counted_vs_profiled(smoke, what, counted, profiled) -> None:
+    if not isinstance(profiled, float):
+        smoke.check(f"{what}: torch.profiler counted FLOPs", False,
+                    str(profiled))
+        return
+    rel = abs(counted - profiled) / profiled
+    smoke.check(f"{what}: counted FLOPs within 2% of torch.profiler's",
+                rel <= 0.02, f"{counted!r} vs {profiled!r}, rel {rel:.3g}")
+
+
+def _dryrun_train(smoke, res) -> None:
+    """Phase 13's step (llama3.2-3b at full width and depth, B=2, S=512,
+    fp32 masters and bf16 compute, remat and loss chunking off as the
+    driver sets them) without a mesh: traced, then run on the card."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, roofline_model, steps
+    from repro_torch.models.api import ShapeCell
+    cfg = dataclasses.replace(configs.get(LLAMA), loss_chunk=0,
+                              remat="none")
+    cell = ShapeCell("phase13_train", TRAIN_S, TRAIN_B, "train")
+    _, info = dryrun.trace_cell(cfg, cell, None, None)
+    mem, flops = info["memory"], info["cost"]["flops"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+
+    step = steps.step_for_cell(cfg, cell, None, None)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state = steps.init_train_state(cfg, gen, DEVICE)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S),
+                                     generator=gen, device=DEVICE,
+                                     dtype=torch.int32)}
+    _reset_launches()
+    step(state, batch)                   # cuBLAS handles and workspaces
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = [_events_ms(lambda: step(state, batch)) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    profiled = _profiled_matmul_flops(lambda: step(state, batch))
+    launches = _read_launches()
+    del state, batch
+    step_ms = statistics.median(ms)
+    terms = roofline_model.terms_from_costs(
+        flops, info["cost"]["bytes accessed"], 0.0, 1, cfg, cell)
+    measured = peak - before
+    out = res["train"] = {
+        "counted_flops": flops, "profiler_matmul_flops": profiled,
+        "predicted_argument_bytes": mem["argument_size_in_bytes"],
+        "predicted_temp_bytes": mem["temp_size_in_bytes"],
+        "predicted_bytes": predicted, "max_memory_allocated": peak,
+        "allocated_before_state": before, "allocated_after_warmup": base,
+        "measured_bytes": measured, "step_ms": ms,
+        "achieved_tflop_per_s": flops / (step_ms / 1e3) / 1e12,
+        "roofline": terms.to_dict(),
+        "measured_roofline_fraction": terms.model_flops_global / (
+            roofline_model.PEAK_FLOPS * step_ms / 1e3),
+        "roofline_step_share": terms.step_time_s / (step_ms / 1e3),
+        "launches": launches}
+    print(f"   15b train: counted {flops!r} FLOP, profiler {profiled!r}; "
+          f"predicted args {mem['argument_size_in_bytes'] / 1e9:.3f} GB + "
+          f"temp {mem['temp_size_in_bytes'] / 1e9:.3f} GB = "
+          f"{predicted / 1e9:.3f} GB, measured {measured / 1e9:.3f} GB "
+          f"(max_memory_allocated {peak / 1e9:.3f} GB); step {step_ms:.1f} "
+          f"ms, {out['achieved_tflop_per_s']:.1f} TFLOP/s; roofline "
+          f"compute {terms.compute_s * 1e3:.2f} ms, memory "
+          f"{terms.memory_s * 1e3:.2f} ms, roofline_fraction "
+          f"{terms.roofline_fraction:.3f}, measured fraction "
+          f"{out['measured_roofline_fraction']:.3f} [{res['card']}]",
+          flush=True)
+    _counted_vs_profiled(smoke, "15b train", flops, profiled)
+    rel = abs(predicted - measured) / measured
+    out["memory_rel_err"] = rel
+    smoke.check("15b train: predicted args + temp within 10% of the "
+                "measured peak", rel <= 0.10, f"rel {rel:.3g}")
+    _check_launches(smoke, "15b train", launches,
+                    {name: 0 for name in launches})
+
+
+def _dryrun_prefill(smoke, res) -> None:
+    """Phase 3's prefill shape (B=4, 1024 tokens) in fp32 on plain
+    attention, as the reference's prefill: traced, then run on the
+    card."""
+    from repro_torch.launch import dryrun, roofline_model, steps
+    from repro_torch.models.api import ShapeCell
+    cfg = _full_cfg(LLAMA, "xla")
+    cell = ShapeCell("phase3_prefill", PROMPT, BATCH, "prefill")
+    _, info = dryrun.trace_cell(cfg, cell, None, None)
+    flops = info["cost"]["flops"]
+    step = steps.step_for_cell(cfg, cell, None, None)
+    params = _params(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                                     generator=gen, device=DEVICE,
+                                     dtype=torch.int32)}
+    _reset_launches()
+    with torch.inference_mode():
+        step(params, batch)
+        ms = [_events_ms(lambda: step(params, batch)) for _ in range(5)]
+        profiled = _profiled_matmul_flops(lambda: step(params, batch))
+    launches = _read_launches()
+    del params
+    prefill_ms = statistics.median(ms)
+    terms = roofline_model.terms_from_costs(
+        flops, info["cost"]["bytes accessed"], 0.0, 1, cfg, cell)
+    out = res["prefill"] = {
+        "counted_flops": flops, "profiler_matmul_flops": profiled,
+        "prefill_ms": ms,
+        "achieved_tflop_per_s": flops / (prefill_ms / 1e3) / 1e12,
+        "roofline": terms.to_dict(),
+        "measured_roofline_fraction": terms.model_flops_global / (
+            roofline_model.PEAK_FLOPS * prefill_ms / 1e3),
+        "launches": launches}
+    print(f"   15c prefill: counted {flops!r} FLOP, profiler {profiled!r}; "
+          f"{prefill_ms:.1f} ms, {out['achieved_tflop_per_s']:.1f} TFLOP/s "
+          f"(fp32); roofline compute {terms.compute_s * 1e3:.2f} ms, "
+          f"memory {terms.memory_s * 1e3:.2f} ms [{res['card']}]",
+          flush=True)
+    _counted_vs_profiled(smoke, "15c prefill", flops, profiled)
+    _check_launches(smoke, "15c prefill", launches,
+                    {name: 0 for name in launches})
+
+
 def time_ms(fn, flush, reps=30, warmup=3) -> float:
     """Median device time of fn() over `reps` runs, CUDA events around each
     run, the L2 cache flushed (a 256 MB write) before each."""
@@ -2920,11 +3147,12 @@ def main() -> int:
     smoke.phase(f"13 train {LLAMA} on the card", lambda: phase_train(smoke))
     smoke.phase("14 distribution on the card",
                 lambda: phase_distribution(smoke))
+    smoke.phase("15 dry run against the card", lambda: phase_dryrun(smoke))
     smoke.phase("7 times", lambda: phase_times(smoke))
     r = smoke.results
     for key in ("launches", "serve", "forward", "times", "profile",
                 "daemon", "moe_models", "decode_g1", "train", "distribution",
-                "phases"):
+                "dryrun", "phases"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"total {time.perf_counter() - t0:.1f} s; "

@@ -98,6 +98,12 @@ class ModelConfig:
     scan_layers: bool = True
 
     @property
+    def sub_quadratic(self) -> bool:
+        """Attention-free or mostly so (SSM, hybrid): the families a
+        500k-token context is run for."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def padded_vocab(self) -> int:
         """Embedding tables padded to a multiple of 256 (Megatron-style);
         cfg.vocab stays the logical vocabulary and padded logit slots are
@@ -162,6 +168,14 @@ class ShapeCell:
     seq_len: int
     global_batch: int
     kind: str               # train | prefill | decode
+
+
+SHAPE_CELLS = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------

@@ -114,7 +114,11 @@ def _tree(source: str, drop_jax: bool = False) -> str:
 # modules of which some top-level definitions are copied, by name
 COPIED_DEFS = {"sharding/partition.py": (
     "MeshAxes", "AxisRules", "flat_axes", "make_rules", "_ACTIVE",
-    "use_rules", "active_rules")}
+    "use_rules", "active_rules"),
+    "launch/roofline_model.py": (
+    "RooflineTerms", "model_flops", "scores_traffic_bytes"),
+    "launch/dryrun.py": (
+    "FULL_ATTENTION_SKIP", "cell_applicable", "scale_groups")}
 
 
 def _defs(source: str) -> dict:

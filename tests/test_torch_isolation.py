@@ -55,8 +55,39 @@ def test_importing_the_port_loads_no_jax_or_reference():
                  # distribution
                  "repro_torch.sharding.partition",
                  "repro_torch.sharding.pipeline_parallel",
-                 "repro_torch.launch.mesh", "repro_torch.configs.common"):
+                 "repro_torch.launch.mesh", "repro_torch.configs.common",
+                 # the dry run and the roofline
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.roofline_model",
+                 "repro_torch.sharding.op_analysis"):
         assert name in names.split(), names
+
+
+_IMPORT_DRYRUN = """
+import os, sys
+env, hook = dict(os.environ), sys.excepthook
+import torch
+from repro_torch.launch import dryrun, roofline_model
+from repro_torch.sharding import op_analysis
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(bad, torch.distributed.is_initialized(), torch.cuda.is_initialized(),
+      dict(os.environ) == env, sys.excepthook is hook)
+"""
+
+
+def test_importing_the_dry_run_touches_no_cuda_group_or_environment():
+    """The dry run, the roofline and the op accounting import neither jax
+    nor the reference, and importing them starts no CUDA, joins no process
+    group, sets no environment variable (the reference's dry run sets
+    XLA_FLAGS at import) and leaves the excepthook alone."""
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_DRYRUN], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["[]", "False", "False", "True", "True"], \
+        out.stdout
 
 
 def test_serve_without_cuda_raises_instead_of_using_the_cpu():
