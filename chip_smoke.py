@@ -150,12 +150,19 @@ the final `{"ok": true, ...}` line from printing:
      exactly 28 x 4 x world flash launches and logits equal to phase 8
      (d)'s on its weights and tokens; (e) the mamba2-780m forward at full
      width and depth over the mesh: exactly 48 SSD launches, hidden state
-     within 2e-5 of the one-device forward.
+     within 2e-5 of the one-device forward; (f) qwen3-moe-30b-a3b at full
+     width cut to 4 layers served on the plain route (the MoE oracle,
+     moe "dense", over the batch gathered from the batch ranks) as
+     `serve` serves it over the ranks: every step's logits within 1e-5
+     of the unsharded plain serve's, no kernel launched.
  15. the dry run against the card (after 14, before 7): (a) `python -m
      repro_torch.launch.dryrun --arch llama3.2-3b --shape all --mesh
      single` in a subprocess that sees no GPU (DRYRUN_TIMEOUT_S): exit 0,
      roofline terms for train_4k, prefill_32k and decode_32k on 256 fake
-     ranks, the reference's skip record for long_500k; meanwhile (b)
+     ranks, the reference's skip record for long_500k; for train_4k the
+     useful FLOPs (at least 0.40), the q and kv heads rank 0 computes
+     attention with (2 and 1: `layers.head_split` over 16 "model"
+     ranks) and its argument + temp GB; meanwhile (b)
      phase 13's train step (full width and depth, B=2, S=512, bf16
      compute, fp32 masters, unsharded) and (c) phase 3's prefill (B=4,
      1024 tokens, fp32, plain attention) are traced at world size 1 and
@@ -164,7 +171,20 @@ the final `{"ok": true, ...}` line from printing:
      within 10% of `max_memory_allocated` over its steps, no kernel
      launched; step and prefill ms (CUDA events), achieved FLOP/s and
      the roofline terms at the H100's peaks are printed with the card.
-Each of phases 3-6 and 8-15 sets every launch count to 0 just before it
+ 16. the port's examples on the card (after 15, before 7), each
+     `repro_torch.examples.<name>.main(["--device", "cuda"])` with the
+     checks of tests/test_torch_examples.py that hold on any device:
+     `quickstart` (a finite training loss that falls, 16 served tokens,
+     its serve on the decode kernel), `multi_tenant_serving` (the
+     fabric line, each tenant's chunk count and output shape, erin's
+     DEGRADE verdict and the recorder's admission counts; carol's
+     `lm-forward` on the flash kernel), `fos_registry_tour` (the cache
+     hits, the tile within 1% of pixels of the CPU's counts, the CPU's
+     signature), `elastic_train` (one restart, one switch, every step),
+     and `elastic_train --m100` (~100M params, B=4, S=256): steps/s,
+     peak GB, restarts and switches.  Their launches are in the
+     `kernels` line (`examples_launches`).
+Each of phases 3-6 and 8-16 sets every launch count to 0 just before it
 drives a path and reads the counts just after.  Phase 7 (run last) also
 times the decode kernel at jamba's, qwen3-moe's, whisper's and
 phi-3-vision's heads, the flash kernel at their forward shapes and the
@@ -643,19 +663,20 @@ def _full_cfg(arch, impl):
 
 
 @contextlib.contextmanager
-def _depth_cut():
-    """`configs.get` (which `serve` reads its config from) hands out
-    DEPTH_CUT's full configs with their depth cut and their widths
-    unchanged."""
+def _depth_cut(cuts=None):
+    """`configs.get` (which `serve` reads its config from) hands out the
+    full configs of `cuts` ({arch: layers}, default DEPTH_CUT) with their
+    depth cut and their widths unchanged."""
     import dataclasses
     from repro_torch import configs
     real = configs.get
+    cuts = DEPTH_CUT if cuts is None else cuts
 
     def get(arch_id, reduced=False):
         cfg = real(arch_id, reduced)
-        if reduced or arch_id not in DEPTH_CUT:
+        if reduced or arch_id not in cuts:
             return cfg
-        return dataclasses.replace(cfg, n_layers=DEPTH_CUT[arch_id])
+        return dataclasses.replace(cfg, n_layers=cuts[arch_id])
     configs.get = get
     try:
         yield
@@ -2378,6 +2399,42 @@ def _dist_ssm(rank, world, tmp) -> dict:
     return out
 
 
+MOE_DENSE_NEW = 4    # (f)'s tokens: the prefill's and 3 decode steps'
+
+
+def _dist_moe_dense(rank, world, tmp) -> dict:
+    """(f) qwen3-moe-30b-a3b at full width cut to MOE_CUT layers served on
+    the plain route, whose MoE is the one-hot oracle ("dense"), as `serve`
+    runs it launched over several ranks (`serve_inputs`, `shard_inputs`,
+    `generate(mesh, rules)`), against the unsharded plain serve of the
+    same inputs."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.serve import (ServeRun, generate, serve_inputs,
+                                          shard_inputs)
+    from repro_torch.sharding import partition
+    mesh = mesh_mod.make_mesh((1, world), ("data", "model"))
+    rules = partition.make_rules("serve")
+    run = ServeRun(arch=QWEN_MOE, reduced=False, batch=BATCH,
+                   prompt_len=PROMPT, max_new_tokens=MOE_DENSE_NEW,
+                   device=DEVICE, attn_impl="xla")
+    with _depth_cut({QWEN_MOE: MOE_CUT}):
+        cfg, params, prompt, extra = serve_inputs(run, DEVICE)
+    out = {"n_layers": cfg.n_layers, "moe_impl": cfg.moe.impl}
+    _, want, _, _ = generate(cfg, params, prompt, MOE_DENSE_NEW, extra)
+    pd, prompt_d, extra_d = shard_inputs(cfg, params, prompt, extra, mesh,
+                                         rules)
+    _reset_launches()
+    _, got, prefill_s, decode_s = generate(
+        cfg, pd, prompt_d, MOE_DENSE_NEW, extra=extra_d, mesh=mesh,
+        rules=rules)
+    out["launches"] = _read_launches()
+    out["max_abs"] = float((got - want).abs().max())
+    out["ok"] = bool(torch.allclose(got, want, atol=1e-5, rtol=1e-5))
+    out["finite"] = bool(torch.isfinite(got).all())
+    out["wall"] = {"prefill_s": prefill_s, "decode_s": decode_s}
+    return out
+
+
 def _dist_rank(rank: int, world: int, tmp: str) -> None:
     """One rank of phase 14: joins the NCCL group, runs (a)-(c) and (e),
     writes what it measured to `tmp/rank<r>.json`; a failed part is
@@ -2390,7 +2447,8 @@ def _dist_rank(rank: int, world: int, tmp: str) -> None:
                               rank=rank, world_size=world)
     out = {"rank": rank, "world": world}
     for name, fn in (("serve", _dist_serve), ("train", _dist_train),
-                     ("moe", _dist_moe), ("ssm", _dist_ssm)):
+                     ("moe", _dist_moe), ("ssm", _dist_ssm),
+                     ("moe_dense", _dist_moe_dense)):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         try:
@@ -2430,11 +2488,23 @@ def phase_distribution(smoke: Smoke) -> None:
     layers = LAYERS[LLAMA]
     for r in ranks:
         tag = f"dist rank {r['rank']}/{world}"
-        for part in ("serve", "train", "moe", "ssm"):
+        for part in ("serve", "train", "moe", "ssm", "moe_dense"):
             if "error" in r[part]:
                 print(r[part]["error"])
             smoke.check(f"{tag}: {part} ran", "error" not in r[part])
         a, b, c, e = r["serve"], r["train"], r["moe"], r["ssm"]
+        f = r["moe_dense"]
+        if "error" not in f:
+            _check_launches(smoke, f"{tag} (f) sharded moe oracle serve",
+                            f["launches"],
+                            {"decode_attention": 0, "flash_attention": 0,
+                             "ssd_scan": 0})
+            smoke.check(f"{tag} (f) {QWEN_MOE} cut to {f['n_layers']} on "
+                        f"the plain route (moe {f['moe_impl']}): logits vs "
+                        f"the unsharded plain serve (1e-5)",
+                        f["ok"] and f["finite"]
+                        and f["moe_impl"] == "dense",
+                        f"max_abs {f['max_abs']:.3g}, wall {f['wall']}")
         if "error" not in a:
             _check_launches(smoke, f"{tag} (a) sharded serve, pallas",
                             a["launches_pallas"],
@@ -2554,7 +2624,7 @@ def _dist_slot(smoke, res, world) -> None:
 # ---------------------------------------------------------------------------
 
 # (a)'s subprocess: the dry run of llama3.2-3b's cells on 256 fake ranks
-DRYRUN_TIMEOUT_S = 85
+DRYRUN_TIMEOUT_S = 150
 # the products torch.profiler counts FLOPs for (with_flops) that the dry
 # run counts too (`torch.utils.flop_counter`'s registry); the profiler
 # also counts the elementwise aten::mul and aten::add, the dry run not
@@ -2622,10 +2692,32 @@ def _dryrun_cells(smoke, res, rc, log, out_dir, wall) -> None:
         ok = all(isinstance(t, float) and np.isfinite(t) and t > 0
                  for t in terms) and cell.get("chips") == 256
         cells[name] = {"roofline": roof, "memory": cell["full"]["memory"],
-                       "trace_s": cell["full"]["trace_s"]}
+                       "trace_s": cell["full"]["trace_s"],
+                       "attn_split": cell.get("attn_split")}
         smoke.check(f"15a dry run: {name} has roofline terms", ok,
                     f"compute {terms[0]!r} s, memory {terms[1]!r} s, "
                     f"collective {terms[2]!r} s, fraction {terms[3]!r}")
+        if name == "train_4k":
+            _dryrun_train_4k(smoke, cells[name])
+
+
+def _dryrun_train_4k(smoke, cell) -> None:
+    """llama3.2-3b train_4k: attention split by whole heads over the 16
+    "model" ranks (rank 0: 2 q heads, 1 kv head), so a rank's useful
+    share of its FLOPs is at least 0.40 (0.097 with attention whole)."""
+    useful = cell["roofline"].get("useful_flops_ratio", 0.0)
+    split = cell.get("attn_split") or {}
+    mem = cell["memory"]
+    gb = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 1e9
+    print(f"   15a train_4k: useful FLOPs {useful!r}, rank 0 attention "
+          f"{split}, args + temp {gb!r} GB "
+          f"(args {mem['argument_size_in_bytes'] / 1e9!r}, temp "
+          f"{mem['temp_size_in_bytes'] / 1e9!r})")
+    smoke.check("15a train_4k: useful FLOPs >= 0.40", useful >= 0.40,
+                f"{useful:.4f}")
+    smoke.check("15a train_4k: rank 0 computes 2 q heads and 1 kv head",
+                split.get("q_heads") == 2 and split.get("kv_heads") == 1,
+                json.dumps(split))
 
 
 def _profiled_matmul_flops(fn) -> float | str:
@@ -2761,6 +2853,150 @@ def _dryrun_prefill(smoke, res) -> None:
     _counted_vs_profiled(smoke, "15c prefill", flops, profiled)
     _check_launches(smoke, "15c prefill", launches,
                     {name: 0 for name in launches})
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the examples
+# ---------------------------------------------------------------------------
+
+# what `multi_tenant_serving` prints that does not depend on timing, as the
+# reference example prints it on one device (tests/test_torch_examples.py)
+TENANT_LINES = [
+    "fabric: example -> [('shellA', 1)]; modules: ['lm-forward', "
+    "'mandelbrot', 'matmul', 'sobel']",
+    "  alice/mandelbrot: 4 chunks done (out[0] shape (256, 256))",
+    "  bob/sobel: 4 chunks done (out[0] shape (1024, 1024))",
+    "  carol/lm-forward: 2 chunks done (out[0] shape (8, 256)) "
+    "(priority=3)",
+    "  dave/burst0: 1 chunks done (out[0] shape (1024, 1024)) (priority=5)",
+    "  dave/burst1: 1 chunks done (out[0] shape (1024, 1024)) (priority=5)",
+    "  dave/burst2: 1 chunks done (out[0] shape (1024, 1024)) (priority=5)",
+    "erin/sobel admission: DEGRADE -> 'sobel-lite'",
+    "slo  : erin submitted=1 admitted=0 degraded=1 rejected=0",
+    "obs  : submitted=7 (admitted=6 degraded=1 rejected=0)"]
+
+
+def _steady_lines(text: str) -> list:
+    out = []
+    for line in text.splitlines():
+        if line.startswith("fabric:"):
+            out.append(line)
+        elif re.match(r"  \w+/[\w-]+: ", line):
+            out.append(re.sub(r" at t=[\d.]+s", "", line))
+        elif line.startswith("erin/sobel admission:"):
+            out.append(line.split(" (")[0])
+        elif line.startswith("slo  :"):
+            out.append(line.split(" attainment=")[0])
+        elif line.startswith("obs  :"):
+            out.append(line.split(" chunks=")[0])
+    return out
+
+
+def _example(smoke, res, name, argv, counted=True):
+    """Run `repro_torch.examples.<name>.main(argv)` with its output
+    captured (and then printed), the launch counts set to 0 before it
+    and read after; returns (what main returned, its output)."""
+    import importlib
+    import io
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    wall = time.perf_counter() - t0
+    if counted:
+        res["launches"][name] = _read_launches()
+    text = buf.getvalue()
+    print("\n".join("   | " + line for line in text.splitlines()[-14:]))
+    res["wall_s"][" ".join([name] + argv)] = wall
+    return out, text
+
+
+def phase_examples(smoke: Smoke) -> None:
+    """Phase 16: the four examples on the card with the checks of their
+    CPU test that hold on any device; `elastic_train --m100` measured."""
+    import math
+    import os
+    res = smoke.results.setdefault("examples", {"launches": {},
+                                                "wall_s": {}})
+    res["card"] = card_line()
+    cuda = ["--device", DEVICE]
+
+    def quickstart():
+        out, _ = _example(smoke, res, "quickstart", cuda)
+        losses = [x for _, x in out["train"]["loss"]]
+        smoke.check("16 quickstart: a finite training loss that falls",
+                    all(math.isfinite(x) for x in losses)
+                    and losses[-1] < losses[0],
+                    f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        smoke.check("16 quickstart: 16 tokens served",
+                    out["serve"]["tokens"].shape == (2, 16))
+        n = res["launches"]["quickstart"]["decode_attention"]
+        smoke.check("16 quickstart: its serve launched the decode kernel",
+                    n > 0, f"{n} launches")
+
+    def multi_tenant():
+        cwd = os.getcwd()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_tenants_")
+        os.chdir(tmp)
+        try:
+            out, text = _example(smoke, res, "multi_tenant_serving", cuda)
+            trace = Path(tmp) / "trace.json"
+            smoke.check("16 multi_tenant_serving: trace.json written",
+                        trace.exists())
+        finally:
+            os.chdir(cwd)
+        lines = _steady_lines(text)
+        want = (TENANT_LINES if torch.cuda.device_count() == 1
+                else TENANT_LINES[1:])
+        got = lines if torch.cuda.device_count() == 1 else lines[1:]
+        smoke.check("16 multi_tenant_serving: the lines that do not depend "
+                    "on timing are the reference's", got == want,
+                    json.dumps([g for g in got if g not in want]))
+        n = res["launches"]["multi_tenant_serving"]["flash_attention"]
+        smoke.check("16 multi_tenant_serving: carol's lm-forward launched "
+                    "the flash kernel", n > 0, f"{n} launches")
+
+    def tour():
+        out, text = _example(smoke, res, "fos_registry_tour", cuda)
+        cpu, _ = _example(smoke, res, "fos_registry_tour",
+                          ["--device", "cpu"], counted=False)
+        hits = re.findall(r"cache_hit=(\w+)", text)
+        smoke.check("16 fos_registry_tour: compile, then a cache hit",
+                    hits == ["False", "True"], str(hits))
+        differ = float(np.mean(out["escape"] != cpu["escape"]))
+        smoke.check("16 fos_registry_tour: escape counts within 1% of "
+                    "pixels of the CPU's", out["escape"].shape == (256, 256)
+                    and differ <= 0.01, f"{differ:.4%} differ, mean "
+                    f"{float(out['escape'].mean())!r} vs "
+                    f"{float(cpu['escape'].mean())!r}")
+        smoke.check("16 fos_registry_tour: the CPU's signature",
+                    out["signature"] == cpu["signature"])
+
+    def elastic(argv, tag):
+        torch.cuda.reset_peak_memory_stats()
+        hist, _ = _example(smoke, res, "elastic_train", cuda + argv)
+        steps = 40
+        res[tag] = {"steps_per_sec": hist["steps_per_sec"],
+                    "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9,
+                    "restarts": hist["restarts"],
+                    "elastic_switches": hist["elastic_switches"],
+                    "final_step": hist["final_step"],
+                    "loss": [hist["loss"][0][1], hist["loss"][-1][1]]}
+        print(f"   16 {tag}: {json.dumps(res[tag])}; card: {card_line()}")
+        smoke.check(f"16 {tag}: one restart, one elastic switch, every "
+                    f"step", hist["restarts"] == 1
+                    and hist["elastic_switches"] == 1
+                    and hist["final_step"] == steps)
+
+    _part(smoke, "16 quickstart", quickstart)
+    _part(smoke, "16 multi_tenant_serving", multi_tenant)
+    _part(smoke, "16 fos_registry_tour", tour)
+    _part(smoke, "16 elastic_train", lambda: elastic([], "elastic_train"))
+    _part(smoke, "16 elastic_train --m100",
+          lambda: elastic(["--m100"], "elastic_train_m100"))
 
 
 def time_ms(fn, flush, reps=30, warmup=3) -> float:
@@ -3118,6 +3354,15 @@ def _sharded_launches(r) -> None:
             if counts and counts.get(entry["name"])}
 
 
+def _examples_launches(r) -> None:
+    """Each kernel entry's launches in phase 16's examples."""
+    runs = r.get("examples", {}).get("launches", {})
+    for entry in r["kernels"]:
+        entry["examples_launches"] = {
+            name: counts.get(entry["name"]) for name, counts in runs.items()
+            if counts.get(entry["name"])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -3148,11 +3393,13 @@ def main() -> int:
     smoke.phase("14 distribution on the card",
                 lambda: phase_distribution(smoke))
     smoke.phase("15 dry run against the card", lambda: phase_dryrun(smoke))
+    smoke.phase("16 the examples on the card",
+                lambda: phase_examples(smoke))
     smoke.phase("7 times", lambda: phase_times(smoke))
     r = smoke.results
     for key in ("launches", "serve", "forward", "times", "profile",
                 "daemon", "moe_models", "decode_g1", "train", "distribution",
-                "dryrun", "phases"):
+                "dryrun", "examples", "phases"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"total {time.perf_counter() - t0:.1f} s; "
@@ -3160,6 +3407,7 @@ def main() -> int:
     if smoke.failures or "kernels" not in r:
         return 1
     _sharded_launches(r)
+    _examples_launches(r)
     print(json.dumps({"kernels": r["kernels"]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

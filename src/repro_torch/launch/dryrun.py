@@ -36,6 +36,7 @@ import torch.distributed as dist
 from repro_torch import configs, tree as tree_mod
 from repro_torch.configs.common import apply_cell_policy
 from repro_torch.launch import mesh as mesh_mod, roofline_model, steps
+from repro_torch.models import layers, stack
 from repro_torch.models.api import SHAPE_CELLS
 from repro_torch.sharding import op_analysis, partition
 
@@ -160,6 +161,23 @@ def _sample(records) -> dict:
             "by_op": op_analysis.bytes_by_op(records)}
 
 
+def attn_split(cfg, mesh, rules) -> dict | None:
+    """The attention heads rank 0 computes with under `rules`
+    (`layers.head_split` over the "model" ranks): {"q_heads", "kv_heads",
+    "ranks"}, or {"whole": True} where the layer computes every head on
+    each rank; None without attention."""
+    if not cfg.n_heads:
+        return None
+    with partition.use_rules(rules):
+        par = stack.parallel(cfg, mesh, rules.batch_axes)
+    tp = par.tp.get("attn", ())
+    if not tp:
+        return {"whole": True}
+    n = partition.axis_size(mesh, tp)
+    q0, q1, k0, k1 = layers.head_split(cfg.n_heads, cfg.n_kv_heads, n)[0]
+    return {"q_heads": q1 - q0, "kv_heads": k1 - k0, "ranks": n}
+
+
 def run_cell(arch: str, cell_name: str, *, multi_pod: bool,
              cost_extrapolate: bool = True, rule_overrides=None,
              tag: str = "", cfg_overrides: dict | None = None) -> dict:
@@ -198,6 +216,7 @@ def run_cell(arch: str, cell_name: str, *, multi_pod: bool,
           f"{'multi' if multi_pod else 'single'}-pod ({chips} fake ranks)")
     with fake_world(chips):
         mesh = mesh_mod.make_production_mesh(multi_pod=multi_pod)
+        result["attn_split"] = attn_split(cfg, mesh, rules)
         records, info = trace_cell(cfg, cell, mesh, rules)
         # every op of every group is dispatched, so the full trace's
         # collectives are the step's own (the reference's HLO of a scan

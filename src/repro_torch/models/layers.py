@@ -2,11 +2,14 @@
 
 Mirrors `repro/models/layers.py`: params are nested dicts of tensors and
 every function takes (params, inputs, config-ish kwargs).  Under a mesh
-each rank runs these functions on its local tensors (its batch shard,
-full weights); the reference's `partition.constrain` calls are kept and
+each rank runs these functions on its local tensors (its batch shard, its
+tensor-parallel share of the weights: attention's whole heads by
+`head_split`); the reference's `partition.constrain` calls are kept and
 redistribute only a DTensor, so on the local tensors they are the
-identity.  The reference's two `shard_map` bodies over a
-sequence-sharded KV cache are per-rank functions here
+identity, and sequence parallelism is written out (`sp`: the rows
+gathered before a layer and reduce-scattered after it).  The
+reference's two `shard_map` bodies over a sequence-sharded KV cache are
+per-rank functions here
 (`sharded_cache_attention`, `sharded_cache_update_attention`): each rank
 attends over its local slice of the cache and the partials merge by an
 online softmax, `all_reduce` MAX and SUM over the ranks of the `seq_kv`
@@ -32,7 +35,7 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -330,40 +333,87 @@ def _gathered_seq(cache: DTensor, mesh, seq_flat, heads) -> torch.Tensor:
     return partition.gather_to(cache, pl)[:, :, heads]
 
 
+def head_split(n_heads: int, n_kv_heads: int, n: int) -> list | None:
+    """Each of `n` tensor-parallel ranks' heads as (q0, q1, k0, k1): its
+    q heads [q0, q1) and kv heads [k0, k1), whole heads, every q head
+    beside its kv head (h // g, g = n_heads / n_kv_heads).
+
+    - n divides the kv heads: K/n whole kv groups a rank;
+    - the kv heads divide n: the n/K ranks of a kv head each hold it
+      (replicated) and split its g q heads contiguously, the first
+      g mod (n/K) of them one more;
+    - otherwise, with n <= K: the kv groups dealt out contiguously, the
+      first K mod n ranks one more (MHA's K = H heads too).
+    None where none of these holds (n > K and K does not divide it, or
+    fewer q heads to a kv head than its ranks): the layer computes whole.
+    Rank 0 always holds the most heads."""
+    if not n_kv_heads or n_heads % n_kv_heads:
+        return None
+    g = n_heads // n_kv_heads
+    if n_kv_heads % n == 0:
+        c = n_kv_heads // n
+        return [(r * c * g, (r + 1) * c * g, r * c, (r + 1) * c)
+                for r in range(n)]
+    if n % n_kv_heads == 0:
+        per = n // n_kv_heads
+        if g < per:
+            return None
+        out = []
+        for r in range(n):
+            k, j = divmod(r, per)
+            q0 = k * g + j * (g // per) + min(j, g % per)
+            out.append((q0, q0 + g // per + (j < g % per), k, k + 1))
+        return out
+    if n <= n_kv_heads:
+        out, k0 = [], 0
+        for r in range(n):
+            c = n_kv_heads // n + (r < n_kv_heads % n)
+            out.append((k0 * g, (k0 + c) * g, k0, k0 + c))
+            k0 += c
+        return out
+    return None
+
+
 def tp_heads(spec: AttentionSpec, mesh, tp) -> tuple:
     """(this rank's share of the heads as an AttentionSpec, the slice of
     its q heads, the slice of its kv heads) under tensor parallelism over
-    the mesh axes `tp`; the spec and every head without it."""
+    the mesh axes `tp` (`head_split`); the spec and every head without
+    it."""
     if not tp:
         return spec, slice(None), slice(None)
-    n = partition.axis_size(mesh, tp)
-    r = partition.axis_index(mesh, tp)
-    local = dataclasses.replace(spec, n_heads=spec.n_heads // n,
-                                n_kv_heads=spec.n_kv_heads // n)
-    return (local, slice(r * local.n_heads, (r + 1) * local.n_heads),
-            slice(r * local.n_kv_heads, (r + 1) * local.n_kv_heads))
+    q0, q1, k0, k1 = head_split(spec.n_heads, spec.n_kv_heads,
+                                partition.axis_size(mesh, tp))[
+        partition.axis_index(mesh, tp)]
+    local = dataclasses.replace(spec, n_heads=q1 - q0, n_kv_heads=k1 - k0)
+    return local, slice(q0, q1), slice(k0, k1)
 
 
-def all_heads(x: torch.Tensor, mesh, tp) -> torch.Tensor:
-    """[B, S, H_loc, hd] of every rank of the mesh axes `tp` joined along
-    the heads (in rank order along the axes, as the params split them):
-    what a cache that holds every head keeps.  No gradient."""
+def all_heads(x: torch.Tensor, mesh, tp, spec: AttentionSpec,
+              kv: bool = True) -> torch.Tensor:
+    """[B, S, H_loc, hd] of every rank of the mesh axes `tp` joined into
+    every head, in head order: the ranks' kv heads (`kv`; a kv head that
+    several ranks hold is taken once) or q heads.  What a cache that
+    holds every head keeps.  No gradient."""
     if not tp:
         return x
-    names = partition.geometry(mesh)[0]
-    pl = [Shard(2) if names[i] in tp else Replicate()
-          for i in range(len(names))]
-    shape = (x.shape[0], x.shape[1],
-             x.shape[2] * partition.axis_size(mesh, tp), x.shape[3])
-    return partition.gather_to(DTensor.from_local(
-        x.detach().contiguous(), mesh, pl, shape=shape,
-        stride=torch.empty(shape, device="meta").stride()),
-        [Replicate()] * len(names))
+    split = head_split(spec.n_heads, spec.n_kv_heads,
+                       partition.axis_size(mesh, tp))
+    ranges = [(k0, k1) if kv else (q0, q1) for q0, q1, k0, k1 in split]
+    width = max(hi - lo for lo, hi in ranges)
+    pad = x.new_zeros(x.shape[:2] + (width - x.shape[2],) + x.shape[3:])
+    parts = partition.gather_parts(torch.cat([x.detach(), pad], dim=2),
+                                   mesh, tp)
+    out, done = [], 0
+    for part, (lo, hi) in zip(parts, ranges):
+        if hi > done:
+            out.append(part[:, :, done - lo:hi - lo])
+            done = hi
+    return torch.cat(out, dim=2)
 
 
 def attention(params, x, spec: AttentionSpec, positions,
               attn_impl: str = "xla", kv_cache=None, cache_pos=None,
-              cross_kv=None, mesh=None, tp=()):
+              cross_kv=None, mesh=None, tp=(), sp=()):
     """General attention entry point; returns (out [B,S,D], new_cache|None).
 
     - full self-attention: kv_cache is None.
@@ -379,20 +429,28 @@ def attention(params, x, spec: AttentionSpec, positions,
     order is the reference's.
 
     `tp`: the mesh axes of Megatron's tensor parallelism.  The params are
-    this rank's share of the heads (wq/wk/wv and their biases its
-    columns, wo its rows); it attends with its q heads over its kv heads
-    (a cache holds every head: the new k/v rows are all-gathered over
-    `tp` to write it), and its part of the output projection is summed
-    over `tp`.
+    this rank's share of the heads (`head_split`: wq/wk/wv and their
+    biases its columns, wo its rows); it attends with its q heads over
+    its kv heads (a cache holds every head: the new k/v rows are
+    all-gathered over `tp` to write it), and its part of the output
+    projection is summed over `tp`.  The gradients of q_norm/k_norm,
+    which each rank takes for its heads only, sum over `tp`.
+    `sp` (the same axes as `tp`): sequence parallelism, x is this rank's
+    rows of the sequence; they are all-gathered before the projections
+    and the output is reduce-scattered back to them
+    (`partition.tp_enter` / `tp_leave`); `bo`, added to the rows, has its
+    gradient summed over `sp`.
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
-    b, s, _ = x.shape
     rules = partition.active_rules()
     whole = spec
     spec, q_heads, heads = tp_heads(spec, mesh, tp)
-    if tp:
-        x = partition.copy_to_group(x, mesh, tp)
+    x = partition.tp_enter(x, mesh, tp, sp)
+    if tp and spec.qk_norm:
+        params = dict(params, **{k: partition.copy_to_group(
+            params[k], mesh, tp) for k in ("q_norm", "k_norm")})
+    b, s, _ = x.shape
 
     def every_head(body, q):
         # the sequence-sharded merge sums over the `seq_kv` ranks, which
@@ -400,7 +458,8 @@ def attention(params, x, spec: AttentionSpec, positions,
         # the tensor-parallel ranks, and this rank keeps its heads' output
         if not tp:
             return body(q, spec)
-        return body(all_heads(q, mesh, tp), whole)[:, :, q_heads]
+        return body(all_heads(q, mesh, tp, whole, kv=False),
+                    whole)[:, :, q_heads]
 
     if cross_kv is not None:
         q = torch.einsum("bsd,dh->bsh", x, params["wq"].to(x.dtype))
@@ -409,12 +468,13 @@ def attention(params, x, spec: AttentionSpec, positions,
         q = q.reshape(b, s, spec.n_heads, spec.head_dim)
         k, v = (partition.local(t) for t in cross_kv)
         if s == 1 and mesh is not None and rules is not None:
-            if tp and k.shape[2] == spec.n_kv_heads:    # this rank's heads
-                k, v = all_heads(k, mesh, tp), all_heads(v, mesh, tp)
+            if tp and k.shape[2] != whole.n_kv_heads:   # this rank's heads
+                k = all_heads(k, mesh, tp, whole)
+                v = all_heads(v, mesh, tp, whole)
             out = every_head(lambda qq, sp: sharded_cache_attention(
                 qq, k, v, sp, 0, mesh, rules, causal=False), q)
         else:
-            if k.shape[2] != spec.n_kv_heads:   # a cache's: every head
+            if tp and k.shape[2] == whole.n_kv_heads:  # a cache's: every head
                 k, v = k[:, :, heads], v[:, :, heads]
             if spec.attn_chunk and s > spec.attn_chunk:
                 out = _chunked_sdpa(q, k.to(q.dtype), v.to(q.dtype), spec,
@@ -436,7 +496,8 @@ def attention(params, x, spec: AttentionSpec, positions,
     else:
         q, k, v = _project_qkv(params, x, spec, positions)
         k_cache, v_cache = kv_cache["k"], kv_cache["v"]
-        k_all, v_all = all_heads(k, mesh, tp), all_heads(v, mesh, tp)
+        k_all = all_heads(k, mesh, tp, whole)
+        v_all = all_heads(v, mesh, tp, whole)
         seq_flat = (partition.flat_axes(rules.get("seq_kv"))
                     if rules is not None and mesh is not None else ())
         if s == 1 and seq_flat and \
@@ -478,11 +539,13 @@ def attention(params, x, spec: AttentionSpec, positions,
         new_cache = kv_cache
     out = out.reshape(b, s, spec.q_dim)
     y = torch.einsum("bsh,hd->bsd", out, params["wo"].to(x.dtype))
-    if tp:
-        y = partition.reduce_from_group(y, mesh, tp)
+    y = partition.tp_leave(y, mesh, tp, sp)
     y = partition.constrain(y, ("batch", "seq", "embed_act"))
     if spec.bias:
-        y = y + params["bo"].to(x.dtype)
+        bo = params["bo"]
+        if sp:
+            bo = partition.copy_to_group(bo, mesh, sp)
+        y = y + bo.to(x.dtype)
     return y, new_cache
 
 
@@ -500,8 +563,7 @@ def cross_kv_from_encoder(params, enc: torch.Tensor, spec: AttentionSpec,
     parallelism over `tp`, this rank's kv heads (wk/wv its columns); the
     encoder states' gradient sums over `tp`."""
     b, se, _ = enc.shape
-    if tp:
-        enc = partition.copy_to_group(enc, mesh, tp)
+    enc = partition.tp_enter(enc, mesh, tp)
     k = torch.einsum("bsd,dh->bsh", enc, params["wk"].to(enc.dtype))
     v = torch.einsum("bsd,dh->bsh", enc, params["wv"].to(enc.dtype))
     if spec.bias:
@@ -516,40 +578,44 @@ def cross_kv_from_encoder(params, enc: torch.Tensor, spec: AttentionSpec,
 # ---------------------------------------------------------------------------
 
 
-def swiglu_mlp(params, x: torch.Tensor, mesh=None, tp=()) -> torch.Tensor:
-    if tp:
-        x = partition.copy_to_group(x, mesh, tp)
+def swiglu_mlp(params, x: torch.Tensor, mesh=None, tp=(),
+               sp=()) -> torch.Tensor:
+    x = partition.tp_enter(x, mesh, tp, sp)
     gate = torch.einsum("bsd,df->bsf", x, params["w_gate"].to(x.dtype))
     up = torch.einsum("bsd,df->bsf", x, params["w_up"].to(x.dtype))
     h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
     y = torch.einsum("bsf,fd->bsd", h, params["w_down"].to(x.dtype))
-    if tp:
-        y = partition.reduce_from_group(y, mesh, tp)
+    y = partition.tp_leave(y, mesh, tp, sp)
     return partition.constrain(y, ("batch", "seq", "embed_act"))
 
 
-def gelu_mlp(params, x: torch.Tensor, mesh=None, tp=()) -> torch.Tensor:
-    if tp:
-        x = partition.copy_to_group(x, mesh, tp)
+def gelu_mlp(params, x: torch.Tensor, mesh=None, tp=(),
+             sp=()) -> torch.Tensor:
+    x = partition.tp_enter(x, mesh, tp, sp)
     h = torch.einsum("bsd,df->bsf", x, params["w_up"].to(x.dtype))
     if "b_up" in params:
         h = h + params["b_up"].to(x.dtype)
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
     y = torch.einsum("bsf,fd->bsd", h, params["w_down"].to(x.dtype))
-    if tp:
-        y = partition.reduce_from_group(y, mesh, tp)
+    y = partition.tp_leave(y, mesh, tp, sp)
     y = partition.constrain(y, ("batch", "seq", "embed_act"))
     if "b_down" in params:
-        y = y + params["b_down"].to(x.dtype)
+        b_down = params["b_down"]
+        if sp:      # added to this rank's rows
+            b_down = partition.copy_to_group(b_down, mesh, sp)
+        y = y + b_down.to(x.dtype)
     return y
 
 
-def mlp(params, x: torch.Tensor, kind: str, mesh=None, tp=()) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, kind: str, mesh=None, tp=(),
+        sp=()) -> torch.Tensor:
     """The MLP; under tensor parallelism over the mesh axes `tp` the
     params are this rank's hidden units (the up projections' columns, the
-    down projection's rows) and the partial outputs sum over `tp`."""
+    down projection's rows) and the partial outputs sum over `tp`; under
+    sequence parallelism (`sp`, as in `attention`) x is this rank's rows,
+    gathered before and reduce-scattered after."""
     if kind == "swiglu":
-        return swiglu_mlp(params, x, mesh, tp)
+        return swiglu_mlp(params, x, mesh, tp, sp)
     if kind == "gelu":
-        return gelu_mlp(params, x, mesh, tp)
+        return gelu_mlp(params, x, mesh, tp, sp)
     raise ValueError(f"unknown mlp kind {kind!r}")

@@ -73,7 +73,8 @@ def _conv_step(buf, u_new, w, bias):
     return out.to(u_new.dtype), full[:, 1:, :].to(cache_dtype)
 
 
-def mamba_block(params, x, spec: MambaSpec, state=None, mesh=None, tp=()):
+def mamba_block(params, x, spec: MambaSpec, state=None, mesh=None, tp=(),
+                sp=()):
     """Apply the mixer.
 
     Train / prefill (state=None, or L > 1): full-sequence chunked SSD.
@@ -89,7 +90,13 @@ def mamba_block(params, x, spec: MambaSpec, state=None, mesh=None, tp=()):
     group), their gradient summed over `tp` (Megatron's f after the
     replicated branch, so that x's gradient counts it once); the gated
     norm's mean square sums over `tp`, and so does the output projection.
+    `sp` (the same axes as `tp`): sequence parallelism, x is this rank's
+    rows of the sequence; the scan needs all of them, so they are
+    all-gathered first (the same x on every rank, as without it) and the
+    output projection's partial sums are reduce-scattered back to them.
     """
+    if sp:
+        x = partition.gather_whole(x, mesh, sp, 1)
     bsz, seqlen, _ = x.shape
     n_heads, n_groups, d_inner = spec.n_heads, spec.n_groups, spec.d_inner
     g0 = 0
@@ -168,8 +175,7 @@ def mamba_block(params, x, spec: MambaSpec, state=None, mesh=None, tp=()):
     else:
         y = layers.rms_norm(y.to(x.dtype), params["norm_w"])
     out = y @ params["w_out"].to(x.dtype)
-    if tp:
-        out = partition.reduce_from_group(out, mesh, tp)
+    out = partition.tp_leave(out, mesh, tp, sp)
     out = partition.constrain(out, ("batch", "seq", "embed_act"))
     return out, new_state
 

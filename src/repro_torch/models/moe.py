@@ -3,7 +3,9 @@
 Mirrors `repro/models/moe.py`.  Two routes with identical math:
 
 - ``dense`` (`moe_dense`): GShard-style one-hot dispatch and combine
-  einsums over [T, E, C].  Shape-static and simple: the plain oracle.
+  einsums over [T, E, C].  Shape-static and simple: the plain oracle;
+  under a mesh it runs over the batch gathered from the batch ranks
+  with every expert (`moe_dense_sharded`).
 - ``ep`` (`moe_ep`): the reference's expert-parallel body.  Dispatch is a
   gather of the tokens each local (expert, slot) holds, the expert outputs
   are weighted and combined by `index_add_` into [T, D], and the combine
@@ -167,7 +169,7 @@ def ep_placements(placements, mesh, spec: MoESpec, expert_dim: int) -> list:
 
 
 def moe_ep(params, x: torch.Tensor, spec: MoESpec, mesh=None,
-           batch_axes=("data",)):
+           batch_axes=("data",), sp=()):
     """x: [B, S, D] -> (y, aux): the reference's expert-parallel body.
 
     Without a mesh every expert is on this device.  Under a mesh, x is
@@ -176,7 +178,9 @@ def moe_ep(params, x: torch.Tensor, spec: MoESpec, mesh=None,
     F, D], gathered by `ep_placements`); the combine is summed over the ep
     ranks and aux, the router's load-balance loss over the local tokens,
     is averaged over the batch ranks (the ep ranks' values are equal, so
-    this is the reference's mean over both)."""
+    this is the reference's mean over both).  Under sequence parallelism
+    over the expert axis (`sp`) the combine is reduce-scattered to this
+    rank's rows of the sequence instead."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -202,23 +206,58 @@ def moe_ep(params, x: torch.Tensor, spec: MoESpec, mesh=None,
     ye = ye * weight[..., None].to(ye.dtype)
     yt = torch.zeros((t, d), dtype=ye.dtype, device=x.device)
     yt.index_add_(0, src_idx.reshape(-1), ye.reshape(-1, d))
+    y = yt.reshape(b, s, d)
     if mesh is not None:
-        yt = partition.reduce_from_group(yt, mesh, spec.ep_axis)
-        n_b = partition.axis_size(mesh, batch_axes)
-        aux = partition.reduce_from_group(aux, mesh, batch_axes) / n_b
-    return yt.reshape(b, s, d), aux
+        if sp:
+            y = partition.scatter_to_group(y, mesh, sp, 1)
+        else:
+            y = partition.reduce_from_group(y, mesh, spec.ep_axis)
+        aux = _batch_mean(aux, mesh, batch_axes)
+    return y, aux
 
 
-def moe_ffn(params, x, spec: MoESpec, mesh=None, batch_axes=("data",)):
-    """The route `spec.impl` names: "dense" the oracle, "ep" the gather
-    (on one device) or the expert-parallel body (under a mesh).  Under a
-    mesh each rank holds only its batch shard, so the oracle, whose
-    capacity and queues span the global batch, does not run there."""
-    if spec.impl == "dense":
-        if mesh is not None:
-            raise ValueError("under a mesh the MoE runs impl='ep' "
-                             "(the oracle's queues span the global batch)")
-        return moe_dense(params, x, spec)
+def _batch_mean(aux, mesh, batch_axes):
+    n_b = partition.axis_size(mesh, batch_axes)
+    return partition.reduce_from_group(aux, mesh, batch_axes) / n_b
+
+
+def moe_dense_sharded(params, x, spec: MoESpec, mesh, batch_axes):
+    """The oracle under a mesh: x is this rank's batch shard [B_loc, S,
+    D], the params hold every expert.  The oracle's capacity and queues
+    span the global batch, so the shards are all-gathered over the batch
+    axes, it runs over all of them, and the rank keeps its rows.  A
+    token's output depends only on its own input, but the router's aux
+    loss on every token: the gather's backward sums the ranks' gradients
+    (`partition.gather_from_group`), and aux is averaged over the batch
+    ranks as `moe_ep` does (their values are equal)."""
+    b = x.shape[0]
+    xs = partition.gather_from_group(x, mesh, batch_axes, 0)
+    y, aux = moe_dense(params, xs, spec)
+    y = y.narrow(0, partition.axis_index(mesh, batch_axes) * b, b)
+    return y, _batch_mean(aux, mesh, batch_axes)
+
+
+def moe_ffn(params, x, spec: MoESpec, mesh=None, batch_axes=("data",),
+            sp=()):
+    """The route `spec.impl` names: "dense" the oracle (under a mesh over
+    the gathered batch, `moe_dense_sharded`), "ep" the gather (on one
+    device) or the expert-parallel body (under a mesh).  Under sequence
+    parallelism (`sp`) x is this rank's rows of the sequence: they are
+    all-gathered first (the router and the capacity see every token, the
+    same on every rank), and the output comes back to the rows."""
+    if spec.impl not in ("dense", "ep"):
+        raise ValueError(f"unknown moe impl {spec.impl!r}")
+    if sp:
+        x = partition.gather_whole(x, mesh, sp, 1)
     if spec.impl == "ep":
-        return moe_ep(params, x, spec, mesh, batch_axes)
-    raise ValueError(f"unknown moe impl {spec.impl!r}")
+        ep_sp = sp if sp == (spec.ep_axis,) else ()
+        y, aux = moe_ep(params, x, spec, mesh, batch_axes, ep_sp)
+        if ep_sp:
+            return y, aux
+    elif mesh is None:
+        y, aux = moe_dense(params, x, spec)
+    else:
+        y, aux = moe_dense_sharded(params, x, spec, mesh, batch_axes)
+    if sp:
+        y = partition.split_to_group(y, mesh, sp, 1)
+    return y, aux

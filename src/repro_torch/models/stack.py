@@ -24,12 +24,20 @@ inside the group's remat region (without grad freed after the group;
 under remat gathered again in the backward; without remat autograd keeps
 it for the backward).  A dim split over
 another mesh axis stays split and the layer computes on its share,
-Megatron's tensor parallelism: attention over its q and kv heads, the MLP
-over its hidden units, the SSM over its heads, the embedding and the
+Megatron's tensor parallelism: attention over its whole q and kv heads
+(`layers.head_split`, whatever the head counts: a kv head shared by
+several ranks is held by each, and the columns of a rank's heads are cut
+from the gathered projection where its stored slice is not them), the
+MLP over its hidden units, the SSM over its heads, the embedding and the
 unembedding (with the loss) over their vocab rows; the partial outputs
 are summed over the axis.  A layer whose split does not fall on whole
 heads gathers its params over the axis and computes them whole, the same
-on each rank of it.  The batch and the cache arrive as DTensors of which
+on each rank of it.  Under rules that put the sequence on mesh axes
+("train": `seq` -> "model") the forward is sequence-parallel
+(`Parallel.for_sequence`): between sub-layers a rank holds its S / n
+rows, norms and residual adds run on them, and each sub-layer gathers
+them and reduce-scatters its output back (`_seq_parallel`).  The batch
+and the cache arrive as DTensors of which
 the rank takes its batch shard, the attention over a sequence-sharded
 cache merges over the `seq_kv` ranks (layers.py), the MoE combine sums
 over the expert ranks (moe.py), and the loss sums over the batch ranks.
@@ -51,10 +59,34 @@ from repro_torch.models.api import ModelConfig
 from repro_torch.sharding import partition
 
 
-def _norm(sub, prefix, x, cfg: ModelConfig):
+def _norm(sub, prefix, x, cfg: ModelConfig, par=None):
+    """The norm `prefix` of `sub` over x.  Under sequence parallelism x is
+    this rank's rows, so the weights' gradients sum over `par.sp`."""
+    w = sub[f"{prefix}_w"]
+    b = sub.get(f"{prefix}_b")
+    if par is not None and par.sp:
+        w = partition.copy_to_group(w, par.mesh, par.sp)
+        if b is not None:
+            b = partition.copy_to_group(b, par.mesh, par.sp)
     if cfg.norm_kind == "rms":
-        return layers.rms_norm(x, sub[f"{prefix}_w"])
-    return layers.layer_norm(x, sub[f"{prefix}_w"], sub[f"{prefix}_b"])
+        return layers.rms_norm(x, w)
+    return layers.layer_norm(x, w, b)
+
+
+def _seq_parallel(fn, x, tp, par):
+    """fn(x, tp, sp), a layer over this rank's rows x.  Without sequence
+    parallelism the layer takes x as it is (sp = ()).  Under it, a layer
+    tensor-parallel over the same axes gathers and reduce-scatters the
+    rows itself (sp passed on); any other computes whole on the gathered
+    rows, the same on every rank, and keeps this rank's rows of its
+    output (`partition.gather_whole` / `split_to_group`)."""
+    sp = () if par is None else par.sp
+    if not sp:
+        return fn(x, tp, ())
+    if tuple(tp) == sp:
+        return fn(x, tp, sp)
+    y = fn(partition.gather_whole(x, par.mesh, sp, 1), tp, ())
+    return partition.split_to_group(y, par.mesh, sp, 1)
 
 
 def moe_spec(cfg: ModelConfig) -> moe_mod.MoESpec:
@@ -170,16 +202,21 @@ def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
     mesh = None if par is None else par.mesh
     tp = {} if par is None else par.tp
     batch_axes = None if par is None else par.batch_axes
+    sp = () if par is None else par.sp
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if mixer == "attn":
         spec = cfg.attn_spec
         if not causal:
             spec = dataclasses.replace(spec, causal=False)
         # attention writes the new K/V into the cache views itself
-        y, _ = layers.attention(
-            sub["attn"], _norm(sub, "ln1", h, cfg), spec, positions,
-            attn_impl=cfg.attn_impl, kv_cache=cache, cache_pos=cache_pos,
-            mesh=mesh, tp=tp.get("attn", ()))
+        y = _seq_parallel(lambda x, t, s: layers.attention(
+            sub["attn"], x, spec, positions, attn_impl=cfg.attn_impl,
+            kv_cache=cache, cache_pos=cache_pos, mesh=mesh, tp=t, sp=s)[0],
+            _norm(sub, "ln1", h, cfg, par), tp.get("attn", ()), par)
+    elif sp:    # sequence parallelism has no cache
+        y = _seq_parallel(lambda x, t, s: mamba_mod.mamba_block(
+            sub["mamba"], x, cfg.mamba_spec, mesh=mesh, tp=t, sp=s)[0],
+            _norm(sub, "ln1", h, cfg, par), tp.get("ssm", ()), par)
     else:
         views = None if cache is None else (
             cache["ssm"], cache["conv_x"], cache["conv_bc"])
@@ -207,22 +244,24 @@ def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
             if cache is not None:
                 for name, t in zip(("xk", "xv"), ck):
                     partition.store_batch(
-                        cache[name], layers.all_heads(t, mesh, attn_tp),
+                        cache[name], layers.all_heads(t, mesh, attn_tp,
+                                                   cfg.attn_spec),
                         batch_axes)
         else:
             ck = (partition.keep_batch(cache["xk"], batch_axes),
                   partition.keep_batch(cache["xv"], batch_axes))
         # plain attention on every path, as the reference's
-        y, _ = layers.attention(
-            sub["xattn"], _norm(sub, "lnx", h, cfg), cfg.attn_spec,
-            positions, attn_impl="xla", cross_kv=ck, mesh=mesh, tp=attn_tp)
-        h = h + y
+        h = h + _seq_parallel(lambda x, t, s: layers.attention(
+            sub["xattn"], x, cfg.attn_spec, positions, attn_impl="xla",
+            cross_kv=ck, mesh=mesh, tp=t, sp=s)[0],
+            _norm(sub, "lnx", h, cfg, par), attn_tp, par)
     if ffn == "dense":
-        h = h + layers.mlp(sub["mlp"], _norm(sub, "ln2", h, cfg),
-                           cfg.mlp_kind, mesh, tp.get("mlp", ()))
+        h = h + _seq_parallel(lambda x, t, s: layers.mlp(
+            sub["mlp"], x, cfg.mlp_kind, mesh, t, s),
+            _norm(sub, "ln2", h, cfg, par), tp.get("mlp", ()), par)
     elif ffn == "moe":
-        sharded = () if mesh is None else (mesh, batch_axes)
-        y, aux = moe_mod.moe_ffn(sub["moe"], _norm(sub, "ln2", h, cfg),
+        sharded = () if mesh is None else (mesh, batch_axes, sp)
+        y, aux = moe_mod.moe_ffn(sub["moe"], _norm(sub, "ln2", h, cfg, par),
                                  moe_spec(cfg), *sharded)
         h = h + y
     return h, aux
@@ -289,27 +328,49 @@ class Parallel:
     """How this rank computes under a mesh: its mesh and batch axes, the
     params' logical axes (`api.param_specs`), and for each layer kind the
     mesh axes it computes split over (`tp`; missing or () where the layer
-    computes whole)."""
+    computes whole); `attn_cols`, the columns of the q and kv projections
+    that this rank's attention heads take ({"q_proj": (start, size),
+    "kv_proj": ...}, from `layers.head_split`); `seq`, the mesh axes the
+    rules put the sequence on, and `sp`, those of this forward's sequence
+    parallelism (`for_sequence`)."""
     mesh: Any
     batch_axes: tuple
     axes: dict
     tp: dict
     moe: moe_mod.MoESpec | None
-    # placements by (axes, storage placements, kind): every layer group
-    # asks again
+    attn_cols: dict = dataclasses.field(default_factory=dict)
+    seq: tuple = ()
+    sp: tuple = ()
+    # placements by (axes, storage placements, shape, kind): every layer
+    # group asks again
     _memo: dict = dataclasses.field(default_factory=dict, compare=False)
 
-    def placements(self, held: partition.Held, axes: tuple, kind) -> list:
-        """What a rank computes with of a param held at `held`: every
-        dim split over a batch axis gathered (FSDP), every dim of a
-        tensor-parallel layer's split axes kept, the rest gathered; an
-        expert weight of the expert-parallel MoE keeps its expert dim
-        split over the expert axis (`moe.ep_placements`)."""
-        key = (axes, held.placements, kind)
+    def for_sequence(self, s: int) -> "Parallel":
+        """This rank's Parallel for a forward over `s` positions: with
+        sequence parallelism over `seq` where the rules put the sequence
+        on mesh axes and those split it evenly (Megatron's: between the
+        sub-layers a rank holds its s / n rows)."""
+        n = partition.axis_size(self.mesh, self.seq)
+        sp = self.seq if n > 1 and s % n == 0 else ()
+        return self if sp == self.sp else dataclasses.replace(self, sp=sp)
+
+    def placements(self, held: partition.Held, axes: tuple, kind) -> tuple:
+        """What a rank computes with of a param held at `held`, as
+        (placements, narrows): every dim split over a batch axis gathered
+        (FSDP), every dim of a tensor-parallel layer's split axes kept,
+        the rest gathered; an expert weight of the expert-parallel MoE
+        keeps its expert dim split over the expert axis
+        (`moe.ep_placements`; the "dense" oracle gathers every expert).
+        An attention projection dim whose stored slice is not this rank's
+        heads' columns is gathered, and `narrows` ((dim, start, size)
+        each) cuts those columns out."""
+        key = (axes, held.placements, held.shape, kind)
         hit = self._memo.get(key)
         if hit is not None:
             return hit
-        if kind == "moe" and axes and axes[0] == "expert":
+        narrows = []
+        if kind == "moe" and axes and axes[0] == "expert" \
+                and self.moe.impl == "ep":
             pl = moe_mod.ep_placements(held.placements, self.mesh, self.moe,
                                        expert_dim=0)
         else:
@@ -319,12 +380,26 @@ class Parallel:
             pl = [p if isinstance(p, Shard) and names[i] in tp
                   and axes[p.dim] in split else Replicate()
                   for i, p in enumerate(held.placements)]
-        self._memo[key] = tuple(pl)
+            for d, name in enumerate(axes):
+                if kind != "attn" or name not in self.attn_cols:
+                    continue
+                cols = self.attn_cols[name]
+                if any(isinstance(p, Shard) and p.dim == d for p in pl) \
+                        and layers.local_rows(held.shape[d], self.mesh,
+                                              tp) == cols:
+                    continue        # the stored slice is this rank's heads
+                pl = [Replicate() if isinstance(p, Shard) and p.dim == d
+                      else p for p in pl]
+                narrows.append((d, *cols))
+        self._memo[key] = (tuple(pl), tuple(narrows))
         return self._memo[key]
 
     def compute(self, tree, axes, kind=None):
         """`tree` (param DTensors, or `Held` shards) as the tensors this
-        rank computes with (`placements`); plain tensors as they are."""
+        rank computes with (`placements`); plain tensors as they are.  The
+        gradient of a dim gathered to be cut sums over the tensor-parallel
+        ranks: each computed with its own heads' columns, and the ranks
+        that share a kv head each took a part of its gradient."""
         if isinstance(tree, dict):
             return {k: self.compute(v, axes[k], _KIND.get(k, kind))
                     for k, v in tree.items()}
@@ -337,8 +412,12 @@ class Parallel:
                     f"layer computes on its shard "
                     f"(partition.distribute_tree)")
             return tree
-        return tree.compute(self.placements(tree, axes, kind),
-                            self.batch_axes)
+        pl, narrows = self.placements(tree, axes, kind)
+        out = tree.compute(pl, self.batch_axes,
+                           self.tp.get(kind, ()) if narrows else ())
+        for d, start, size in narrows:
+            out = out.narrow(d, start, size)
+        return out
 
     def top(self, params, key: str):
         """The params under `key` of the top level, to compute with."""
@@ -354,8 +433,9 @@ def parallel(cfg: ModelConfig, mesh, batch_axes) -> Parallel | None:
     """This rank's `Parallel` under the active axis rules; None without a
     mesh.  A layer kind computes split over the non-batch mesh axes its
     logical axes map to (one set for all of them), when those hold more
-    than one rank and split it into whole heads (attention: q and kv
-    heads; SSM: heads, and whole B/C groups or one shared group)."""
+    than one rank and split it into whole heads (attention: by
+    `layers.head_split`, whatever the head counts where it finds a split;
+    SSM: heads, and whole B/C groups or one shared group)."""
     if mesh is None:
         return None
     rules = partition.active_rules()
@@ -363,7 +443,7 @@ def parallel(cfg: ModelConfig, mesh, batch_axes) -> Parallel | None:
         raise ValueError("a forward under a mesh needs axis rules "
                          "(partition.use_rules)")
     batch = set(partition.flat_axes(batch_axes))
-    tp = {}
+    tp, attn_cols = {}, {}
     for kind, names in _SPLIT.items():
         sets = {tuple(a for a in partition.flat_axes(rules.get(n))
                       if a not in batch) for n in names}
@@ -371,17 +451,27 @@ def parallel(cfg: ModelConfig, mesh, batch_axes) -> Parallel | None:
         n = partition.axis_size(mesh, axes)
         if n == 1:
             axes = ()
-        elif kind == "attn" and (cfg.n_heads % n or cfg.n_kv_heads % n):
-            axes = ()
+        elif kind == "attn":
+            split = layers.head_split(cfg.n_heads, cfg.n_kv_heads, n)
+            if split is None:
+                axes = ()
+            else:
+                q0, q1, k0, k1 = split[partition.axis_index(mesh, axes)]
+                hd = cfg.head_dim
+                attn_cols = {"q_proj": (q0 * hd, (q1 - q0) * hd),
+                             "kv_proj": (k0 * hd, (k1 - k0) * hd)}
         elif kind == "ssm":
             ms = cfg.mamba_spec if cfg.family in ("ssm", "hybrid") else None
             if ms is None or ms.n_heads % n or (ms.n_groups > 1
                                                 and ms.n_groups % n):
                 axes = ()
         tp[kind] = axes
+    seq = tuple(a for a in partition.flat_axes(rules.get("seq"))
+                if a not in batch)
     return Parallel(mesh, tuple(partition.flat_axes(batch_axes)),
                     _param_axes(cfg), tp,
-                    moe_spec(cfg) if cfg.moe is not None else None)
+                    moe_spec(cfg) if cfg.moe is not None else None,
+                    attn_cols, seq)
 
 
 def _top(params, key: str, par):
@@ -407,18 +497,37 @@ def embed_tokens(params, cfg: ModelConfig, tokens, par=None):
     """The tokens' embeddings.  Under the vocab's tensor parallelism a
     rank holds rows [v0, v0 + n) of the table: it looks up the tokens
     that fall there, zeros for the rest, and the ranks' lookups sum (one
-    term is not zero, so the sum is the row exactly)."""
+    term is not zero, so the sum is the row exactly).  Under sequence
+    parallelism (`par.sp`) this rank's positions: the sum is
+    reduce-scattered to them (or, with the table whole, they are cut)."""
     tok = _top(params, "embed", par)["tok"]
     tp = _vocab_tp(par)
+    sp = () if par is None else par.sp
     if not tp:
-        return tok[tokens].to(cfg.compute_dtype)
+        e = tok[tokens].to(cfg.compute_dtype)
+        return partition.split_to_group(e, par.mesh, sp, 1) if sp else e
     v0, n = layers.local_rows(cfg.padded_vocab, par.mesh, tp)
     idx = tokens - v0
     inside = (idx >= 0) & (idx < n)
     e = tok[idx.clamp(0, max(n - 1, 0))] if n else tok.new_zeros(
         tuple(tokens.shape) + (tok.shape[1],))
     e = torch.where(inside[..., None], e, 0.0)
-    return partition.reduce_from_group(e, par.mesh, tp).to(cfg.compute_dtype)
+    if sp == tuple(tp):
+        e = partition.scatter_to_group(e, par.mesh, sp, 1)
+    else:
+        e = partition.reduce_from_group(e, par.mesh, tp)
+        if sp:
+            e = partition.split_to_group(e, par.mesh, sp, 1)
+    return e.to(cfg.compute_dtype)
+
+
+def _seq_rows(par, s: int) -> tuple[int, int]:
+    """(start, size) of this rank's positions of `s` under sequence
+    parallelism; every position without it."""
+    if par is None or not par.sp:
+        return 0, s
+    m = s // partition.axis_size(par.mesh, par.sp)
+    return partition.axis_index(par.mesh, par.sp) * m, m
 
 
 def _unembed_weight(params, cfg: ModelConfig, par=None):
@@ -429,14 +538,17 @@ def _unembed_weight(params, cfg: ModelConfig, par=None):
     return _top(params, "lm_head", par).to(cfg.compute_dtype)
 
 
-def _logits(w, cfg: ModelConfig, h, par=None):
+def _logits(w, cfg: ModelConfig, h, par=None, entered=False):
     """Logits in fp32 of h against the unembedding `w`; padding slots are
-    -1e30.  Under the vocab's tensor parallelism, this rank's columns."""
+    -1e30.  Under the vocab's tensor parallelism, this rank's columns
+    (h the same on each rank of it, or `entered`: gathered over it by
+    `partition.gather_from_group`, whose backward sums)."""
     tp = _vocab_tp(par)
     v0 = 0
     if tp:
         v0 = layers.local_rows(cfg.padded_vocab, par.mesh, tp)[0]
-        h = partition.copy_to_group(h, par.mesh, tp)
+        if not entered:
+            h = partition.copy_to_group(h, par.mesh, tp)
     logits = torch.einsum("bsd,dv->bsv", h.float(), w.float())
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
@@ -479,6 +591,8 @@ def _encode(params, cfg: ModelConfig, frames, par=None):
     """whisper's encoder over stub frame embeddings [B, Se, D]: sinusoidal
     positions, the non-causal `enc_blocks` stack, then `enc_final`."""
     se = frames.shape[1]
+    if par is not None and par.sp:      # the encoder runs whole
+        par = dataclasses.replace(par, sp=())
     h = frames.to(cfg.compute_dtype)
     h = h + sinusoidal_positions(se, cfg.d_model, frames.device).to(
         cfg.compute_dtype)
@@ -495,24 +609,30 @@ def _decoder_inputs(params, cfg: ModelConfig, batch, par=None):
     phi-3-vision the patches in place of the first n_patches positions."""
     tokens = batch["tokens"]
     h = embed_tokens(params, cfg, tokens, par)
+    s0, m = _seq_rows(par, tokens.shape[1])
     enc_out = None
     if cfg.family == "encdec":
         enc_out = _encode(params, cfg, batch["frames"], par)
-        h = h + _top(params, "dec_pos", par)[:tokens.shape[1]].to(
-            cfg.compute_dtype)
+        pos = _top(params, "dec_pos", par)
+        if par is not None and par.sp:  # added to this rank's rows
+            pos = partition.copy_to_group(pos, par.mesh, par.sp)
+        h = h + pos[s0:s0 + m].to(cfg.compute_dtype)
     if cfg.family == "vlm":
         patches = batch["patches"].to(cfg.compute_dtype)
-        h = torch.cat([patches, h[:, patches.shape[1]:]], dim=1)
+        n = min(max(patches.shape[1] - s0, 0), m)   # patch rows held here
+        h = torch.cat([patches[:, s0:s0 + n], h[:, n:]], dim=1)
     return h, enc_out
 
 
 def _forward_local(params, cfg: ModelConfig, batch, par=None):
+    """(h, aux) of this rank's batch; under sequence parallelism
+    (`par.sp`) h is this rank's positions."""
     tokens = batch["tokens"]
     h, enc_out = _decoder_inputs(params, cfg, batch, par)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     h, _, aux = run_stack(params["blocks"], cfg, h, positions,
                           enc_out=enc_out, par=par)
-    h = _norm(_top(params, "final", par), "lnf", h, cfg)
+    h = _norm(_top(params, "final", par), "lnf", h, cfg, par)
     return h, aux
 
 
@@ -524,8 +644,12 @@ def forward(params, cfg: ModelConfig, batch, *, mesh=None,
     Under a mesh h is a DTensor sharded over the batch."""
     if mesh is None:
         return _forward_local(params, cfg, batch)
-    h, aux = _forward_local(params, cfg, local_batch(batch, batch_axes),
-                            parallel(cfg, mesh, batch_axes))
+    batch = local_batch(batch, batch_axes)
+    par = parallel(cfg, mesh, batch_axes).for_sequence(
+        batch["tokens"].shape[1])
+    h, aux = _forward_local(params, cfg, batch, par)
+    if par.sp:
+        h = partition.gather_whole(h, mesh, par.sp, 1)
     return partition.batch_dtensor(h, mesh, batch_axes), aux
 
 
@@ -538,12 +662,12 @@ def _gold_logit(logits, targets):
     return torch.where(vpos == targets[..., None], logits, 0.0).sum(dim=-1)
 
 
-def _ce_sum(w, cfg: ModelConfig, h, targets, par=None):
+def _ce_sum(w, cfg: ModelConfig, h, targets, par=None, entered=False):
     """The CE summed over h's positions.  Under the vocab's tensor
     parallelism each rank holds its vocab columns of the logits: the
     log-sum-exp merges by the global max and the summed exponentials, the
     gold logit by the ranks' masked sums (one of them holds it)."""
-    logits = _logits(w, cfg, h, par)
+    logits = _logits(w, cfg, h, par, entered)
     tp = _vocab_tp(par)
     if not tp:
         lse = torch.logsumexp(logits, dim=-1)
@@ -564,8 +688,16 @@ def loss_from_hidden(params, cfg: ModelConfig, h, tokens, aux, par=None):
     materialising [B, S, V] logits at once.  Under a mesh (`par`) h and
     tokens are this rank's batch shard: the CE sums add over the batch
     ranks (the gradient of each rank's sum stays its own), and the mean
-    is over the global batch."""
+    is over the global batch.  Under sequence parallelism h is this
+    rank's positions, all-gathered here (over the vocab's ranks, each of
+    which then takes its columns, the gradient summed back)."""
     b, s = tokens.shape
+    entered = False
+    if par is not None and par.sp:
+        entered = _vocab_tp(par) == par.sp
+        gather = (partition.gather_from_group if entered
+                  else partition.gather_whole)
+        h = gather(h, par.mesh, par.sp, 1)
     targets = tokens[:, 1:]
     hh = h[:, :-1]
     n = b * (s - 1)
@@ -573,10 +705,10 @@ def loss_from_hidden(params, cfg: ModelConfig, h, tokens, aux, par=None):
     if cfg.loss_chunk and (s - 1) % cfg.loss_chunk == 0:
         c = cfg.loss_chunk
         total = sum(_ce_sum(w, cfg, hh[:, i:i + c], targets[:, i:i + c],
-                            par)
+                            par, entered)
                     for i in range(0, s - 1, c))
     else:
-        total = _ce_sum(w, cfg, hh, targets, par)
+        total = _ce_sum(w, cfg, hh, targets, par, entered)
     if par is not None:
         total = partition.reduce_from_group(total, par.mesh, par.batch_axes)
         n *= partition.axis_size(par.mesh, par.batch_axes)
@@ -589,6 +721,8 @@ def local_loss(params, cfg: ModelConfig, batch, par=None):
     what it computes with layer by layer) and batch shard (`local_batch`);
     equal on every rank under a mesh, and its gradient on a rank is that
     rank's share."""
+    if par is not None:
+        par = par.for_sequence(batch["tokens"].shape[1])
     h, aux = _forward_local(params, cfg, batch, par)
     return loss_from_hidden(params, cfg, h, batch["tokens"], aux, par)
 

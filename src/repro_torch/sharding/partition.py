@@ -329,6 +329,155 @@ def copy_to_group(x, mesh, axes):
     return _CopyToGroup.apply(x, mesh, axes)
 
 
+def _gather0(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def gather_parts(x: torch.Tensor, mesh, axes) -> list:
+    """Every rank's `x` (equal shapes) over the ranks that differ only
+    along `axes`, in the order of `axis_index` (major to minor)."""
+    names, sizes, _ = geometry(mesh)
+    stacked = x[None]
+    for a in reversed(flat_axes(axes)):
+        n = sizes[names.index(a)]
+        if n > 1:
+            stacked = _gather0(stacked, mesh.get_group(a), n)
+    return list(stacked.unbind(0))
+
+
+def _all_gather_dim(x, mesh, axes, dim):
+    """The ranks' x joined along `dim` in `axis_index` order (one
+    all-gather per mesh axis, the minor one first)."""
+    names, sizes, _ = geometry(mesh)
+    x = x.movedim(dim, 0)
+    for a in reversed(flat_axes(axes)):
+        n = sizes[names.index(a)]
+        if n > 1:
+            x = _gather0(x, mesh.get_group(a), n)
+    return x.movedim(0, dim).contiguous()
+
+
+def _own_part(x, mesh, axes, dim):
+    n = axis_size(mesh, axes)
+    size = x.shape[dim] // n
+    return x.narrow(dim, axis_index(mesh, axes) * size, size).contiguous()
+
+
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def _reduce_scatter_dim(x, mesh, axes, dim):
+    """The sum over the `axes` ranks of x, of which this rank keeps its
+    equal part of `dim` (one reduce-scatter per mesh axis, the major one
+    first)."""
+    names, sizes, _ = geometry(mesh)
+    x = x.movedim(dim, 0)
+    for a in flat_axes(axes):
+        n = sizes[names.index(a)]
+        if n > 1:
+            out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+            _REDUCE_SCATTER(out, x.contiguous(), group=mesh.get_group(a))
+            x = out
+    return x.movedim(0, dim).contiguous()
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """Each rank's part of `dim` joined over a group whose ranks each use
+    the whole for a part of the result: all-gather forward, the ranks'
+    gradients summed and this rank's part kept backward (a reduce-scatter;
+    Megatron's sequence-parallel `g`, in place of `copy_to_group`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _all_gather_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter_dim(grad, *ctx.args), None, None, None
+
+
+class _ScatterToGroup(torch.autograd.Function):
+    """Partial sums over a group, of which each rank keeps its part of
+    `dim`: reduce-scatter forward, all-gather backward (Megatron's
+    sequence-parallel `g-bar`, in place of `reduce_from_group`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _reduce_scatter_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather_dim(grad, *ctx.args), None, None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """Each rank's part of `dim` joined over a group whose ranks then all
+    compute the same thing with the whole: all-gather forward, this
+    rank's part of the (equal) gradient kept backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _all_gather_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own_part(grad, *ctx.args), None, None, None
+
+
+class _SplitToGroup(torch.autograd.Function):
+    """This rank's part of `dim` of a tensor that is the same on every
+    rank of a group: a slice forward, the parts all-gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _own_part(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather_dim(grad, *ctx.args), None, None, None
+
+
+def gather_from_group(x, mesh, axes, dim: int):
+    return _GatherFromGroup.apply(x, mesh, axes, dim)
+
+
+def scatter_to_group(x, mesh, axes, dim: int):
+    return _ScatterToGroup.apply(x, mesh, axes, dim)
+
+
+def gather_whole(x, mesh, axes, dim: int):
+    return _GatherWhole.apply(x, mesh, axes, dim)
+
+
+def split_to_group(x, mesh, axes, dim: int):
+    return _SplitToGroup.apply(x, mesh, axes, dim)
+
+
+def tp_enter(x, mesh, tp, sp=()):
+    """A tensor-parallel layer's input: the same x on every rank of `tp`
+    (`copy_to_group`), or under sequence parallelism over the same axes
+    (`sp`, then x is this rank's rows of dim 1) the rows all-gathered."""
+    if sp:
+        return gather_from_group(x, mesh, sp, 1)
+    return copy_to_group(x, mesh, tp) if tp else x
+
+
+def tp_leave(y, mesh, tp, sp=()):
+    """A tensor-parallel layer's partial output summed over `tp`
+    (`reduce_from_group`), or under sequence parallelism reduce-scattered
+    to this rank's rows of dim 1."""
+    if sp:
+        return scatter_to_group(y, mesh, sp, 1)
+    return reduce_from_group(y, mesh, tp) if tp else y
+
+
 # ---------------------------------------------------------------------------
 # the local island: what a rank computes with, and the way back
 # ---------------------------------------------------------------------------
@@ -430,21 +579,23 @@ class Held:
         the DTensor of this layout."""
         return _dtensor(local, self, self.placements)
 
-    def compute(self, placements, batch_axes) -> torch.Tensor:
+    def compute(self, placements, batch_axes, summed=()) -> torch.Tensor:
         """The tensor this rank computes with: the shard all-gathered over
         every mesh dim where `placements` is Replicate and the storage is
         Shard (an FSDP gather over the batch axes, or a layer that does
         not compute on the split).  Differentiable: the gradient goes back
         onto the storage placements, summed over the batch ranks of the
-        gathered dims (a reduce-scatter) and sliced on the others, whose
-        ranks computed the same gradient.  A mesh dim of size one moves
-        nothing."""
+        gathered dims and over those of the mesh axes `summed` (a
+        reduce-scatter: each of those ranks computed with a part of the
+        gathered tensor) and sliced on the others, whose ranks computed
+        the same gradient.  A mesh dim of size one moves nothing."""
         _, sizes, _ = geometry(self.mesh)
         pl = tuple(s if n == 1 else p
                    for s, p, n in zip(self.placements, placements, sizes))
         if pl == self.placements:
             return self.local
-        keep = batch_dims(self.mesh, batch_axes)
+        keep = batch_dims(self.mesh, batch_axes) | batch_dims(self.mesh,
+                                                              summed)
         grad_pl = tuple(
             Partial() if i in keep and isinstance(s, Shard)
             and isinstance(p, Replicate) else p

@@ -41,11 +41,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import torch_ranks  # noqa: E402
+from torch_ref_init import ref_init  # noqa: E402
 from repro import configs as ref_configs  # noqa: E402
 from repro.models import api as ref_api, io as ref_io  # noqa: E402
 from repro.models import moe as ref_moe, stack as ref_stack  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.models import api, convert, moe, stack  # noqa: E402
+from repro_torch.models import api, convert, layers, moe, stack  # noqa: E402
 from repro_torch.models.api import ShapeCell  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -214,7 +215,7 @@ def _reference_single_device(arch):
     the inputs, as numpy."""
     cfg = _ref_cfg(arch)
     ref_cfg = _dense(cfg)
-    params = ref_api.init_params(cfg, jax.random.PRNGKey(0))
+    params = ref_init(cfg, jax.random.PRNGKey(0))
     batch = ref_io.make_batch(cfg, ref_io.smoke_cell("train", b=4, s=32),
                               jax.random.PRNGKey(1))
     loss = float(jax.jit(ref_stack.build_loss_fn(ref_cfg))(params, batch))
@@ -381,7 +382,7 @@ def _one_device_step(cfg, params_np, tokens, compress):
 @pytest.fixture(scope="module")
 def training(work):
     cfg_ref = _ref_cfg("llama3.2-3b")
-    params = _np32(ref_api.init_params(cfg_ref, jax.random.PRNGKey(0)))
+    params = _np32(ref_init(cfg_ref, jax.random.PRNGKey(0)))
     tokens = np.random.default_rng(3).integers(
         0, cfg_ref.vocab, (4, 16)).astype(np.int32)
     torch_ranks.save_tree(work / "train_params.npz", params)
@@ -655,10 +656,10 @@ def test_each_rank_holds_and_computes_with_its_share(arch, kind, train_tp):
     """What rank 0 holds of the first layer group and of the embedding,
     and what it computes with: a dim split over "data" (FSDP: embed under
     "train", every rule's dim under "train_fsdp") is gathered, a dim
-    split over "model" stays a quarter where the layer computes on it
-    (attention only where the q and kv heads split into whole heads:
-    reduced llama's 2 kv heads do not split 4 ways, so its attention
-    gathers)."""
+    split over "model" stays a quarter where the layer computes on it;
+    attention computes with its whole heads' columns (`layers.head_split`:
+    reduced llama's 2 kv heads each go to 2 ranks, which split its 2 q
+    heads, so a rank computes with one q and one kv head)."""
     ranks, _ = train_tp
     cfg = configs.get(arch, reduced=True)
     d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
@@ -689,12 +690,10 @@ def test_each_rank_holds_and_computes_with_its_share(arch, kind, train_tp):
     assert held["sub0/mlp/w_up"] == (d // fsdp, f // 4)
     assert used["sub0/mlp/w_up"] == (d, f // 4)
     assert used["sub0/mlp/w_down"] == (f // 4, d)
-    hq = cfg.n_heads * cfg.head_dim
+    hq, hd = cfg.n_heads * cfg.head_dim, cfg.head_dim
     assert held["sub0/attn/wq"] == (d // fsdp, hq // 4)
-    if cfg.n_kv_heads % 4 == 0:
-        assert tp["attn"] == ("model",)
-        assert used["sub0/attn/wq"] == (d, hq // 4)
-        assert used["sub0/attn/wo"] == (hq // 4, d)
-    else:
-        assert tp["attn"] == ()
-        assert used["sub0/attn/wq"] == (d, hq)
+    q0, q1, k0, k1 = layers.head_split(cfg.n_heads, cfg.n_kv_heads, 4)[0]
+    assert tp["attn"] == ("model",)
+    assert used["sub0/attn/wq"] == (d, (q1 - q0) * hd)
+    assert used["sub0/attn/wk"] == (d, (k1 - k0) * hd)
+    assert used["sub0/attn/wo"] == ((q1 - q0) * hd, d)

@@ -310,9 +310,11 @@ def test_run_cell_llama_writes_the_reference_json_and_leaves_no_group():
     assert not dist.is_initialized()
     # the reference's keys (repro/launch/dryrun.py run_cell); "full" names
     # the trace's time where the reference names its lower and compile
-    # times, and adds the full trace's collectives
+    # times, and adds the full trace's collectives; "attn_split" records
+    # the attention heads rank 0 computes with (or that it computes whole)
     assert set(res) == {"arch", "cell", "mesh", "chips", "tag", "full",
-                        "extrapolated", "roofline"}
+                        "extrapolated", "roofline", "attn_split"}
+    assert res["attn_split"] == {"q_heads": 2, "kv_heads": 1, "ranks": 16}
     assert res["chips"] == 256 and res["mesh"] == "single"
     assert set(res["full"]) == {"trace_s", "memory", "cost", "coll"}
     assert set(res["full"]["memory"]) == {

@@ -59,7 +59,13 @@ def test_importing_the_port_loads_no_jax_or_reference():
                  # the dry run and the roofline
                  "repro_torch.launch.dryrun",
                  "repro_torch.launch.roofline_model",
-                 "repro_torch.sharding.op_analysis"):
+                 "repro_torch.sharding.op_analysis",
+                 "repro_torch.launch.dryrun_table",
+                 # the examples
+                 "repro_torch.examples.quickstart",
+                 "repro_torch.examples.elastic_train",
+                 "repro_torch.examples.multi_tenant_serving",
+                 "repro_torch.examples.fos_registry_tour"):
         assert name in names.split(), names
 
 

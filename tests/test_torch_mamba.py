@@ -24,6 +24,7 @@ from repro import configs as ref_configs  # noqa: E402
 from repro.models import api as ref_api, mamba as ref_mamba  # noqa: E402
 from repro.models import stack as ref_stack  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from torch_ref_init import ref_init  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.launch.serve import ServeRun, generate, serve  # noqa: E402
 from repro_torch.models import api, convert, io, mamba, stack  # noqa: E402
@@ -53,13 +54,13 @@ def _numpy_params():
     """Param tree of numpy arrays shaped by the reference's table; a_log
     and dt_bias from the reference's own (deterministic) init."""
     rng = np.random.default_rng(11)
-    ref_init = jax.tree_util.tree_map_with_path(
-        lambda p, v: v, ref_api.init_params(_ref_cfg(), jax.random.PRNGKey(0)))
+    ref_tree = jax.tree_util.tree_map_with_path(
+        lambda p, v: v, ref_init(_ref_cfg(), jax.random.PRNGKey(0)))
 
     def leaf(path, sd):
         name = jax.tree_util.keystr(path)
         if name.endswith("['a_log']") or name.endswith("['dt_bias']"):
-            node = ref_init
+            node = ref_tree
             for k in path:
                 node = node[k.key]
             return np.array(node, np.float32)
@@ -123,9 +124,9 @@ def test_init_matches_reference_deterministic_leaves():
     got = dict(api.flatten(api.init_params(
         cfg, torch.Generator().manual_seed(0))))
     ref = dict(api.flatten(_numpy_params()))
-    ref_init = ref_api.init_params(_ref_cfg(), jax.random.PRNGKey(0))
+    ref_tree = ref_init(_ref_cfg(), jax.random.PRNGKey(0))
     ref_leaves = {jax.tree_util.keystr(p): np.asarray(v) for p, v in
-                  jax.tree_util.tree_flatten_with_path(ref_init)[0]}
+                  jax.tree_util.tree_flatten_with_path(ref_tree)[0]}
     for path, leaf in got.items():
         assert tuple(leaf.shape) == ref[path].shape, path
         name = path.split("/")[-1]

@@ -30,6 +30,7 @@ from repro import configs as ref_configs  # noqa: E402
 from repro.models import api as ref_api, moe as ref_moe  # noqa: E402
 from repro.models import stack as ref_stack  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from torch_ref_init import ref_init  # noqa: E402
 from repro_torch.launch.serve import ServeRun, generate, serve  # noqa: E402
 from repro_torch.models import api, convert, moe, stack  # noqa: E402
 
@@ -253,12 +254,12 @@ def _numpy_params(arch):
     and dt_bias (jamba's) from the reference's deterministic init."""
     cfg = _ref_cfg(arch)
     rng = np.random.default_rng(zlib.crc32(arch.encode()))
-    ref_init = ref_api.init_params(cfg, jax.random.PRNGKey(0))
+    ref_tree = ref_init(cfg, jax.random.PRNGKey(0))
 
     def leaf(path, sd):
         name = jax.tree_util.keystr(path)
         if name.endswith("['a_log']") or name.endswith("['dt_bias']"):
-            node = ref_init
+            node = ref_tree
             for k in path:
                 node = node[k.key]
             return np.array(node, np.float32)

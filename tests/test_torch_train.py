@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import zlib
 
 import numpy as np
 import pytest
@@ -24,6 +23,8 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+
+from torch_ref_init import ref_init  # noqa: E402
 
 from repro import configs as ref_configs  # noqa: E402
 from repro.ckpt import checkpoint as ref_ckpt  # noqa: E402
@@ -81,27 +82,10 @@ def _port_cfg(ref_cfg, **kw):
         dict(dataclasses.asdict(ref_cfg), **kw))
 
 
-def _ref_init(cfg, key):
-    """The reference's `init_params` with a stable fold of each param's
-    path into its key.  `init_params` folds `hash(path)`, and Python salts
-    string hashes per process (PYTHONHASHSEED), so every process drew
-    other weights and the counts below varied from process to process;
-    crc32 of the path draws the same weights in every process, through
-    the reference's own `_init_leaf`."""
-    flat, treedef = jax.tree.flatten_with_path(ref_api.param_table(cfg),
-                                               is_leaf=ref_api._is_spec)
-    leaves = []
-    for path, spec in flat:
-        pstr = "/".join(str(p) for p in path)
-        k = jax.random.fold_in(key, zlib.crc32(pstr.encode()) % (2 ** 31))
-        leaves.append(ref_api._init_leaf(spec, k, cfg))
-    return jax.tree.unflatten(treedef, leaves)
-
-
 @functools.cache
 def _ref_params_np(arch) -> dict:
     """The reference's own init of the reduced config, as numpy."""
-    params = _ref_init(_ref_cfg(arch), jax.random.PRNGKey(0))
+    params = ref_init(_ref_cfg(arch), jax.random.PRNGKey(0))
     return jax.tree.map(np.asarray, params)
 
 

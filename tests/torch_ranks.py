@@ -387,8 +387,123 @@ def _clone_tree(tree):
     return tree_mod.tree_map(lambda t: t.clone(), tree)
 
 
+def case_cfg(case: dict):
+    """A case's config: the arch's reduced one in fp32 (`_cfg`, without
+    its MoE route) with the case's field overrides (`over`) and MoE
+    overrides (`moe`)."""
+    import torch
+    from repro_torch import configs
+    cfg = dataclasses.replace(
+        configs.get(case["arch"], reduced=True), param_dtype=torch.float32,
+        compute_dtype=torch.float32, kv_dtype=torch.float32,
+        **case.get("over", {}))
+    if case.get("moe"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, **case["moe"]))
+    return cfg
+
+
+def job_split(rank, world, workdir):
+    """The cases of `split.json`, each a config (`case_cfg`) on its mesh:
+    under
+    "train" one step (loss, grad norm, the gradient the optimizer takes,
+    whole; the rows of the sequence each sub-layer's input holds; what
+    rank 0 computes its attention with), under "serve" the prefill and
+    two decode steps' logits on the sequence-sharded cache, and with
+    "serve_driver" `launch.serve.serve` over every rank (its (1, world)
+    mesh)."""
+    import torch
+    from repro_torch import tree as tree_mod
+    from repro_torch.launch import mesh as mesh_mod, steps
+    from repro_torch.launch.serve import ServeRun, serve
+    from repro_torch.models import api, convert, stack
+    from repro_torch.models.api import ShapeCell
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import partition
+    cases = json.loads((workdir / "split.json").read_text())
+    opt_cfg = adamw.AdamWConfig(**cases["opt"])
+    out = {}
+    real_update, real_sublayer = adamw.update, stack._sublayer
+    for case in cases["cases"]:
+        name = case["name"]
+        if case.get("serve_driver"):
+            res = serve(ServeRun(**case["serve_driver"]), log=lambda *_: None)
+            out[f"{name}/serve_logits"] = res["logits"].detach().clone()
+            continue
+        cfg = case_cfg(case)
+        mesh = mesh_mod.make_mesh(tuple(case["mesh"][0]),
+                                  tuple(case["mesh"][1]))
+        params = convert.params_from_numpy(
+            _load_tree(workdir / f"{name}_params.npz"), cfg, "cpu")
+        io_np = _load_tree(workdir / f"{name}_io.npz")
+        if "train" in case["kinds"]:
+            rules = partition.make_rules("train")
+            with partition.use_rules(rules):
+                par = stack.parallel(cfg, mesh, rules.batch_axes)
+                held = partition.distribute_tree(params, api.param_specs(cfg),
+                                                 mesh, rules)
+                group = stack._groups(held["blocks"])[0]
+                axes = tree_mod.tree_map(lambda a: a[1:], par.axes["blocks"])
+                sub = next((k for k in sorted(group) if "attn" in group[k]),
+                           None)
+                if sub is not None:
+                    used = par.compute(group[sub]["attn"],
+                                       axes[sub]["attn"], "attn")
+                    out[f"{name}/attn_used"] = {
+                        k: tuple(v.shape) for k, v in used.items()}
+            out[f"{name}/tp"] = dict(par.tp)
+            state = steps.shard_train_state(
+                {"params": tree_mod.tree_map(lambda t: t.clone(), params),
+                 "opt": adamw.init(params)}, cfg, mesh, rules)
+            seen, rows = [], []
+
+            def spy(opt_cfg, grads, opt_state, params):
+                seen.append(tree_mod.tree_map(_full, grads))
+                return real_update(opt_cfg, grads, opt_state, params)
+
+            def sublayer(sub, cfg, item, h, *a, **k):
+                rows.append(int(h.shape[1]))
+                return real_sublayer(sub, cfg, item, h, *a, **k)
+            adamw.update, stack._sublayer = spy, sublayer
+            try:
+                step = steps.build_train_step(cfg, opt_cfg, mesh, rules)
+                batch = {"tokens": io_np["train_tokens"]}
+                _, metrics = step(state, partition.distribute_tree(
+                    batch, {"tokens": ("batch", None)}, mesh, rules))
+            finally:
+                adamw.update, stack._sublayer = real_update, real_sublayer
+            out[f"{name}/train"] = {"loss": float(metrics["loss"]),
+                                    "grad_norm": float(metrics["grad_norm"]),
+                                    "grads": seen[0], "rows": rows}
+        if "serve" in case["kinds"]:
+            rules = partition.make_rules("serve")
+            p_serve = partition.distribute_tree(params, api.param_specs(cfg),
+                                                mesh, rules)
+            prompt = io_np["prompt"]
+            b, s = prompt.shape
+
+            def put(t):
+                return partition.distribute(t, mesh, partition.to_placements(
+                    ("batch", None), rules, mesh))
+            cell = ShapeCell("p", s + case["new"], b, "prefill")
+            with torch.inference_mode():
+                prefill = steps.build_prefill_step(cfg, cell, mesh, rules)
+                decode = steps.build_decode_step(cfg, mesh, rules)
+                cache, logits = prefill(p_serve, {"tokens": put(prompt)})
+                got = [_full(logits)]
+                tok = got[0].argmax(-1)[:, None].to(torch.int32)
+                for i in range(case["new"] - 1):
+                    cache, nxt, logits = decode(p_serve, cache, put(tok),
+                                                s + i)
+                    got.append(_full(logits))
+                    tok = _full(nxt)[:, None]
+            out[f"{name}/serve_logits"] = torch.stack(got, 1)
+    return out
+
+
 JOBS = {"placements": job_placements, "models": job_models,
-        "moe": job_moe, "train": job_train, "train_tp": job_train_tp}
+        "moe": job_moe, "train": job_train, "train_tp": job_train_tp,
+        "split": job_split}
 
 
 if __name__ == "__main__":
