@@ -9,8 +9,11 @@ the final `{"ok": true, ...}` line from printing:
      matmuls and cuDNN, build the CUDA kernels from the sources (timed);
      fail on a register spill in a main-path instantiation; report the
      registers and CTAs an SM of the MHA decode instances (G=1 at hd=64
-     and hd=96); count the HMMA (tensor-core) instructions of the hd=128
-     and hd=96 flash kernels where the toolkit has cuobjdump;
+     and hd=96); check that no bf16 instance of the mma.sync flash kernel
+     is built (bf16 has one route, the wgmma kernel); count the
+     tensor-core instructions of the hd=128 and hd=96 flash kernels where
+     the toolkit has cuobjdump: HMMA (mma.sync) in the fp32 ones, HGMMA
+     (wgmma) in the bf16 ones;
   2. hold each kernel against its plain PyTorch version on the card: the
      reference test cases plus the full-width llama3.2-3b and mamba2-780m
      shapes, each in fp32 (tolerance 2e-5; SSD state 1e-4) and bf16 (2e-2;
@@ -27,7 +30,11 @@ the final `{"ok": true, ...}` line from printing:
      its init's decay and step ranges; MHA at whisper's 20 heads of 64
      and phi-3-vision's 32 of 96: decode at lengths 1, 7, 131, 1040 and
      1056 and B=1 (hd=96), flash at S=1024, and at hd=96 also S = 1, 7,
-     1000, 1040, B=1 and inputs x3 against fp64;
+     1000, 1040, B=1 and inputs x3 against fp64; the bf16 flash kernel
+     (wgmma) at every head dim (16, 32, 64, 96, 128) at lengths ragged
+     against its 64-row tiles (77, 200, 1000; GQA and MHA), on q/k/v cut
+     from one fused projection (strided views), and with inputs x3 against
+     fp64 at twice the plain bf16 version's error;
   3. serve llama3.2-3b at full width (B=4, 1024-token prompt, 32 new
      tokens, attn_impl="pallas"): the decode kernel must launch exactly
      28 layers x 31 steps = 868 times and no other kernel; a plain ("xla")
@@ -50,11 +57,16 @@ the final `{"ok": true, ...}` line from printing:
      yardstick, used nowhere in the port), their lower bounds on the card
      (the bytes over the memory rate, or the FLOP at the tensor-core rate
      of the inputs' type: 3xTF32 for fp32, bf16's own for bf16),
-     each kernel's device-only time (torch.profiler: its kernels' self
-     device time over the calls, and how many device kernels one call
-     enqueues; the flash kernel also in bf16), prefill and decode of both
-     models, the llama3.2-3b forward on the flash kernel and with plain
-     attention, and a torch.profiler breakdown;
+     each kernel's and each library call's device-only time (CUDA events
+     around the call alone, enqueued behind a `torch.cuda._sleep` spin so
+     the host's enqueue cost is hidden: `device_time`), how many device
+     kernels one call enqueues (the kernel nodes of one call captured into
+     a CUDA graph; checked against each wrapper's own: 1 flash, 1 decode,
+     4 SSD), a check that no device time is under its bound, the flash kernel also in bf16 at llama's and
+     the lm-forward module's shapes (with the design's bound: P.V in two
+     passes, 1.5x the FLOP), prefill and decode of both models, the
+     llama3.2-3b forward on the flash kernel and with plain attention, and
+     a torch.profiler breakdown;
   8. the FOS runtime on the card (run after phase 6; then 9-12 and 7):
      (a) `serve_daemon` as the reference's (mandelbrot and sobel tenants on
      one slot and its stream): 14 chunks, every output equal to a direct
@@ -72,8 +84,9 @@ the final `{"ok": true, ...}` line from printing:
      plain path on the same weights; then the chunk time of each zoo
      module on the card (CUDA events on the slot's stream, median of 5),
      a torch.profiler breakdown of one lm-forward and one mandelbrot
-     chunk, and the flash kernel alone at the module's attention shape
-     beside SDPA in bf16.  (a) writes the flight recorder's Chrome trace
+     chunk, and the relative L2 of the flash and of the plain bf16
+     path's logits to an fp32 forward (attention too) of the same weights
+     and tokens.  (a) writes the flight recorder's Chrome trace
      (`trace_out`), which must parse and count the daemon's 14 chunks and
      its preemptions; (b) runs with a recorder attached, whose counts must
      be the daemon's;
@@ -185,11 +198,15 @@ the final `{"ok": true, ...}` line from printing:
      peak GB, restarts and switches.  Their launches are in the
      `kernels` line (`examples_launches`).
 Each of phases 3-6 and 8-16 sets every launch count to 0 just before it
-drives a path and reads the counts just after.  Phase 7 (run last) also
-times the decode kernel at jamba's, qwen3-moe's, whisper's and
-phi-3-vision's heads, the flash kernel at their forward shapes and the
-SSD kernel at jamba's shape.  Then the `kernels` JSON line, the card line
-and the final line.
+drives a path and reads the counts just after.  Phase 7 runs last, in a
+fresh process (`python3 chip_smoke.py --times DIR`, the main paths'
+launch counts passed in DIR): torch.profiler drops kernel records in a
+process, more the longer it has run (`profiler_census` counts them after
+every phase), and phase 7's breakdowns are read from it.  Phase 7 also times the decode kernel at jamba's,
+qwen3-moe's, whisper's and phi-3-vision's heads, the flash kernel at
+their forward shapes (and in bf16 at the lm-forward module's, B=8,
+S=64) and the SSD kernel at jamba's shape.  Then the `kernels` JSON
+line, the card line and the final line.
 
 It imports nothing of jax or of the reference package `repro`.
 """
@@ -294,6 +311,11 @@ FLASH_CASES = [
 # inputs x3 against fp64: (hq, hkv, hd) of llama's and phi-3-vision's
 # forwards
 PEAKY_CASES = [(24, 8, 128), (32, 32, 96)]
+# bf16 (the wgmma kernel) at every head dim: (b, s, hq, hkv) at lengths
+# that are no multiple of its 64-row tiles and boxes, GQA and MHA; and
+# (hq, hkv, hd) of q/k/v cut from one fused projection (strided views)
+FLASH_BF16_RAGGED = [(2, 200, 8, 2), (1, 77, 4, 4), (3, 1000, 6, 3)]
+FLASH_BF16_FUSED = [(24, 8, 128), (32, 32, 96), (4, 1, 64)]
 # (b, L, h, p, g, n, chunk): the full-width mamba2-780m prefill shape, and
 # jamba's (128 heads, d_state 16)
 SSD_FULL = (4, 1024, 48, 64, 1, 128, 128)
@@ -310,8 +332,10 @@ SSD_CASES = [
 # (mangled): decode at hd=128, g<=4 (llama, jamba) and g<=8 (qwen3-moe, fp32
 # and bf16), and g=1 at hd=64 (whisper) and hd=96 (phi-3-vision); SSD at
 # P=64, N=128 (mamba2-780m) and N=16 (jamba), with their C.B^T kernels;
-# flash at hd=128, 64 and 96
+# flash at hd=128, 64 and 96 in fp32 (mma.sync) and at hd=128 in bf16
+# (wgmma; the lm-forward module's)
 FLASH_MAIN = "flash_kernelIfLi128E"
+FLASH_BF16 = "flash_wgmma_kernelILi128E"
 DECODE_G1 = ("decode_kernelIfLi64ELi1E", "decode_kernelIfLi96ELi1E")
 MAIN_PATH_INSTANCES = (
     "decode_kernelIfLi128ELi4E", "decode_kernelIfLi128ELi8E",
@@ -321,10 +345,15 @@ MAIN_PATH_INSTANCES = (
     "ssd_chunk_state_kernelIfLi64ELi16E",
     "ssd_chunk_scan_kernelIfLi64ELi16E", "ssd_cb_kernelIfLi16E",
     "ssd_state_pass_kernel", FLASH_MAIN, "flash_kernelIfLi64E",
-    "flash_kernelIfLi96E")
-# the flash instances whose SASS must hold HMMA (tensor-core) instructions
-FLASH_HMMA = (FLASH_MAIN, "flash_kernelI13__nv_bfloat16Li128E",
-              "flash_kernelIfLi96E", "flash_kernelI13__nv_bfloat16Li96E")
+    "flash_kernelIfLi96E", FLASH_BF16)
+# the flash instances whose SASS must hold tensor-core instructions: HMMA
+# (mma.sync) in the fp32 kernel, HGMMA (wgmma) in the bf16 one
+FLASH_SASS = {FLASH_MAIN: "HMMA", "flash_kernelIfLi96E": "HMMA",
+              FLASH_BF16: "HGMMA", "flash_wgmma_kernelILi96E": "HGMMA"}
+# the bf16 flash kernel's registers at launch, which its setmaxnreg moves
+# assume (flash_attention.cu, Wg::kLaunchRegs: two CTAs of 256 threads an
+# SM)
+FLASH_BF16_REGS = 128
 # y and final state, as the reference's test_ssd_kernel_matches_ref
 SSD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}
 
@@ -429,32 +458,52 @@ def phase_setup(smoke: Smoke) -> None:
             smoke.results.setdefault("decode_g1", {})[inst] = k
             print(f"   {inst}: {k['registers']} registers, {k['smem']} "
                   f"bytes shared, {k['ctas_per_sm']} CTAs an SM")
-    # the flash kernel's products run on the tensor cores: HMMA in its SASS
-    for inst in FLASH_HMMA:
-        hmma = _hmma_count(libs["flash_attention"], inst)
-        smoke.results.setdefault("sass_hmma", {})[inst] = hmma
-        if hmma is None:
+    # bf16 has one route, the wgmma kernel: no bf16 instance of the
+    # mma.sync one is built, and the wgmma instances got the registers at
+    # launch that their setmaxnreg moves assume
+    flash = _ptxas_kernels(libs["flash_attention"].with_suffix(".log")
+                           .read_text())
+    old_bf16 = [k["name"] for k in flash
+                if "flash_kernelI13__nv_bfloat16" in k["name"]]
+    smoke.check("flash: no bf16 instance of the mma.sync kernel",
+                not old_bf16, f"{old_bf16 or 'none'}")
+    wgmma = {k["name"]: k["registers"] for k in flash
+             if "flash_wgmma_kernel" in k["name"]}
+    smoke.check(f"flash: the wgmma instances have {FLASH_BF16_REGS} "
+                f"registers at launch",
+                len(wgmma) == 5 and all(r == FLASH_BF16_REGS
+                                        for r in wgmma.values()),
+                f"{sorted(wgmma.values())}")
+    # the flash kernels' products run on the tensor cores: HMMA in the
+    # fp32 kernel's SASS, HGMMA in the bf16 one's
+    sass = _sass(libs["flash_attention"])
+    for inst, op in FLASH_SASS.items():
+        if sass is None:
             print(f"sass {inst}: not read (no cuobjdump in the toolkit)")
-        else:
-            smoke.check(f"sass {inst}: HMMA instructions", hmma > 0,
-                        str(hmma))
+            continue
+        n = _sass_count(sass, inst, op)
+        smoke.results.setdefault("sass_tensor_core", {})[inst] = {op: n}
+        smoke.check(f"sass {inst}: {op} instructions", n > 0, str(n))
 
 
-def _hmma_count(lib: Path, kernel: str) -> int | None:
-    """How many HMMA (tensor-core) instructions the SASS of the kernel whose
-    mangled name holds `kernel` has; None where the toolkit has no
-    cuobjdump."""
+def _sass(lib: Path) -> str | None:
+    """The SASS of a library; None where the toolkit has no cuobjdump."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+
+
+def _sass_count(sass: str, kernel: str, op: str) -> int:
+    """How many `op` instructions (HMMA: mma.sync, HGMMA: wgmma) the SASS of
+    the kernel whose mangled name holds `kernel` has."""
     count, inside = 0, False
     for line in sass.splitlines():
         if "Function :" in line:
             inside = kernel in line
-        elif inside and re.search(r"\bHMMA\b", line):
+        elif inside and re.search(rf"\b{op}\b", line):
             count += 1
     return count
 
@@ -581,6 +630,7 @@ def phase_kernels(smoke: Smoke) -> None:
                     f"version's", err_kernel <= 2 * err_plain,
                     f"kernel {err_kernel:.3g}, plain fp32 {err_plain:.3g}")
         del q, k, v, exact
+    _flash_bf16_cases(smoke, gen)
     for b, l, h, p, g, n, chunk in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = _ssd_inputs(gen, b, l, h, p, g, n, dtype)
@@ -616,6 +666,46 @@ def phase_kernels(smoke: Smoke) -> None:
     err_s, ok_s = err_within(s2, s_full, 1e-4)
     smoke.check("ssd_scan continuation 512+512 vs 1024 (1e-4)", ok_y and ok_s,
                 f"max_abs_err y={err_y:.3g} state={err_s:.3g}")
+
+
+def _flash_bf16_cases(smoke, gen) -> None:
+    """Phase 2's cases of the bf16 flash kernel beyond FLASH_CASES: every
+    head dim at ragged lengths, strided views of a fused projection, and a
+    peaky softmax against fp64."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    bf = torch.bfloat16
+
+    def check(what, q, k, v):
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err, ok = err_within(got, want, TOL[bf])
+        smoke.check(f"flash_attention bf16 {what}", ok,
+                    f"max_abs_err={err:.3g}")
+
+    for hd in fa.HEAD_DIMS:
+        for b, s, hq, hkv in FLASH_BF16_RAGGED:
+            q = _randn(gen, (b, s, hq, hd), bf)
+            k, v = (_randn(gen, (b, s, hkv, hd), bf) for _ in range(2))
+            check(f"b={b} s={s} hq={hq} hkv={hkv} hd={hd}", q, k, v)
+    for hq, hkv, hd in FLASH_BF16_FUSED:
+        qkv = _randn(gen, (2, 200, (hq + 2 * hkv) * hd), bf)
+        q, k, v = (t.unflatten(-1, (-1, hd)) for t in
+                   qkv.split([hq * hd, hkv * hd, hkv * hd], dim=-1))
+        check(f"strided views of one projection b=2 s=200 hq={hq} "
+              f"hkv={hkv} hd={hd} (strides {q.stride()})", q, k, v)
+    for hq, hkv, hd in PEAKY_CASES[:1]:
+        q, k, v = ((3 * _randn(gen, (4, 1024, h, hd), torch.float32)).to(bf)
+                   for h in (hq, hkv, hkv))
+        exact = _attention_fp64(q, k, v)
+        err_kernel = float((fa.flash_attention(q, k, v, causal=True)
+                            .double() - exact).abs().max())
+        err_plain = float((fa.flash_attention_plain(q, k, v, causal=True)
+                           .double() - exact).abs().max())
+        smoke.check(f"flash_attention inputs x3 hq={hq} hkv={hkv} hd={hd} "
+                    f"bfloat16: error vs fp64 within 2x the plain bf16 "
+                    f"version's", err_kernel <= 2 * err_plain,
+                    f"kernel {err_kernel:.3g}, plain bf16 {err_plain:.3g}")
 
 
 def _counters() -> dict:
@@ -1377,9 +1467,6 @@ def phase_daemon(smoke: Smoke) -> None:
 
     res["lm_forward_full"] = _lm_forward_full(smoke, slot, (re_t, im_t),
                                               (img,))
-    gc.collect()                    # the full-width weights go here
-    torch.cuda.empty_cache()
-    res["lm_forward_full"]["flash_bf16_s64"] = _flash_lm_shape(smoke)
 
 
 def _lm_forward_full(smoke, slot, mandel_args, sobel_args) -> dict:
@@ -1429,19 +1516,29 @@ def _lm_forward_full(smoke, slot, mandel_args, sobel_args) -> dict:
     smoke.check("daemon lm-forward-full: one reconfiguration, two reuses",
                 st["reconfigurations"] == 1 and st["reuses"] == 2,
                 f"stats {st}")
-    # the plain path on the same weights and tokens
+    # the plain path on the same weights and tokens; and the whole forward
+    # in fp32 (attention too), from which the flash and the plain bf16
+    # runs' logits each stand some way off
     cfg_plain = dataclasses.replace(cfg, attn_impl="xla")
-    rel, abs_err = [], []
+    cfg_fp32 = dataclasses.replace(cfg_plain, compute_dtype=torch.float32)
+
+    def logits(c, t):
+        hp, _ = stack.forward(pl.weights_on_slot, c, {"tokens": t})
+        return stack.unembed(pl.weights_on_slot, c,
+                             hp[:, -1:])[:, 0][:, :cfg.vocab].float()
+
+    rel, abs_err, gap = [], [], {"flash": [], "plain": []}
     with torch.inference_mode():
         for toks, got in zip(tokens, outs):
             t = torch.from_numpy(toks).to(slot.device)
-            hp, _ = stack.forward(pl.weights_on_slot, cfg_plain,
-                                  {"tokens": t})
-            want_l = stack.unembed(pl.weights_on_slot, cfg_plain,
-                                   hp[:, -1:])[:, 0][:, :cfg.vocab]
+            want_l, fp32_l = logits(cfg_plain, t), logits(cfg_fp32, t)
             got_l = got[:, :cfg.vocab].float()
             rel.append(float((got_l - want_l).norm() / want_l.norm()))
             abs_err.append(float((got_l - want_l).abs().max()))
+            for name, l in (("flash", got_l), ("plain", want_l)):
+                gap[name].append(float((l - fp32_l).norm() / fp32_l.norm()))
+    print(f"   lm-forward-full: relative L2 to the fp32 forward: flash "
+          f"{gap['flash']}, plain bf16 {gap['plain']}")
     smoke.check("daemon lm-forward-full: logits vs plain path "
                 "(relative L2 <= 5e-2)",
                 all(r <= 5e-2 for r in rel) and all(
@@ -1458,7 +1555,7 @@ def _lm_forward_full(smoke, slot, mandel_args, sobel_args) -> dict:
           "compile_time_s": pl.compile_time_s, "load_time_s": pl.load_time_s,
           "upload_gb_per_s": n_bytes / pl.load_time_s / 1e9,
           "launches": launches, "stats": st, "relative_l2": rel,
-          "max_abs_err": abs_err}
+          "max_abs_err": abs_err, "relative_l2_to_fp32": gap}
     print(f"   lm-forward-full: compile {pl.compile_time_s:.3f} s, load "
           f"{pl.load_time_s:.3f} s ({lm['upload_gb_per_s']:.2f} GB/s)")
     # each zoo module's chunk on the card, beside the registry's estimate
@@ -1494,39 +1591,13 @@ def _leaves(tree):
 
 def _flash_lm_shape(smoke) -> dict:
     """The flash kernel alone at the lm-forward module's attention shape
-    (bf16, B=8, S=64, Hq=24, Hkv=8, hd=128, causal) beside one SDPA
-    call in bf16 at the same shape."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops as fa
-    b, s, hq, hkv, hd = 8, 64, 24, 8, 128
-    dt = torch.bfloat16
+    (bf16, B=8, S=64, Hq=24, Hkv=8, hd=128, causal) beside one SDPA call
+    in bf16 at the same shape, as a `kernels`-line entry."""
     gen = torch.Generator(device=DEVICE).manual_seed(13)
-    q = _randn(gen, (b, s, hq, hd), dt)
-    k = _randn(gen, (b, s, hkv, hd), dt)
-    v = _randn(gen, (b, s, hkv, hd), dt)
     flush = torch.empty(64 * 2 ** 20, device=DEVICE)
-    err, ok = err_within(fa.flash_attention(q, k, v, causal=True),
-                         fa.flash_attention_plain(q, k, v, causal=True),
-                         TOL[dt])
-    smoke.check("flash_attention bf16 at the lm-forward shape vs plain", ok,
-                f"max_abs_err={err:.3g}")
-    nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
-    flops = 4 * b * hq * hd * (s * (s + 1) // 2)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FLOP_PER_S[dt] * 1e3
-    device = device_time(lambda: fa.flash_attention(q, k, v, causal=True),
-                         flush, "flash_kernel")
-    return {"shape": {"b": b, "s": s, "hq": hq, "hkv": hkv, "hd": hd,
-                      "dtype": "bfloat16"},
-            "max_abs_err": err,
-            "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
-                          flush),
-            "device_ms": device[0],
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True), flush),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return _flash_shape_entry(
+        smoke, gen, flush, 8, 64, 24, 8, 128, 128 ** -0.5, torch.bfloat16,
+        _launches(smoke, "daemon lm-forward-full", "flash_attention"))
 
 
 # ---------------------------------------------------------------------------
@@ -3017,39 +3088,93 @@ def time_ms(fn, flush, reps=30, warmup=3) -> float:
     return statistics.median(times)
 
 
-def device_time(fn, flush, kernel_name, calls=20, clean_l2=False) -> tuple:
-    """Device-only time of one call of fn(): the self device time that
-    torch.profiler gives the kernels whose name holds `kernel_name`, summed
-    over `calls` calls (the L2 cache flushed before each) and divided by
-    them, so the wrapper's host work is left out; and how many such device
-    kernels one call enqueued, and the time of each of them by name.  The
-    flush is time_ms's 256 MB write, which
-    leaves the L2 full of dirty lines whose write-back the next kernel
-    pays; with `clean_l2` it is a 256 MB read instead, which leaves clean
-    lines, as the weight reads before attention in a decode step do."""
+# cycles of the `torch.cuda._sleep` spin that device_time enqueues before
+# each timed call: ~1 ms at the H100's clocks, longer than any wrapper's
+# host work (its checks, tensor maps and launches)
+SLEEP_CYCLES = 2_000_000
+
+
+def device_time(fn, flush, kernel_name=None, calls=20,
+                clean_l2=False) -> dict:
+    """Device-only time of one call of fn() (`ms`), and with `kernel_name`
+    the device kernels it enqueues.
+
+    `ms` is the median over `calls` calls of CUDA events recorded around
+    fn() alone while the card is still busy with a `torch.cuda._sleep`
+    spin the host enqueued first: the host has enqueued all of fn()'s work
+    before the card reaches the first event, so the events time the
+    device's work only, every kernel of it, and not the wrapper's host
+    cost.  The L2 is flushed before each call: by time_ms's 256 MB write,
+    which leaves dirty lines whose write-back the next kernel pays, or with
+    `clean_l2` by a 256 MB read, which leaves clean lines, as the weight
+    reads before attention in a decode step do.
+
+    `kernels_per_call`: the kernels whose name holds `kernel_name` among
+    the nodes of one call captured into a CUDA graph (`graph_kernels`).
+    torch.profiler is not used for it: in a process that has run for a
+    while it drops kernel records, more the longer it runs
+    (`profiler_census`).  `by_kernel`: the profiler's mean device time of
+    one launch of each such kernel, by name, over `calls` calls (a mean
+    over the records it kept)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(calls):
+        if clean_l2:
+            flush.sum()
+        else:
+            flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    out = {"ms": statistics.median(times)}
+    if kernel_name is None:
+        return out
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            if clean_l2:
-                flush.sum()
-            else:
-                flush.zero_()
+            flush.zero_()
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
-              and kernel_name in e.key and e.self_device_time_total]
-    if not events:
-        return "not measured", "not measured", {}
     by_kernel = {}
-    for e in events:  # demangled name up to its argument list
-        name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key)
-        by_kernel[name] = by_kernel.get(name, 0.0) + \
-            e.self_device_time_total / 1e3 / calls
-    return (sum(e.self_device_time_total for e in events) / 1e3 / calls,
-            sum(e.count for e in events) / calls, by_kernel)
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and kernel_name in e.key \
+                and e.count:
+            # demangled name up to its argument list
+            name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                          e.key)
+            by_kernel[name] = e.self_device_time_total / 1e3 / e.count
+    out.update(kernels_per_call=graph_kernels(fn, kernel_name),
+               by_kernel=by_kernel)
+    return out
+
+
+def graph_kernels(fn, kernel_name) -> int:
+    """How many kernels whose name holds `kernel_name` one call of fn()
+    enqueues: the call captured into a CUDA graph (relaxed capture: the
+    wrappers set function attributes and make tensor maps on the host while
+    they launch), its kernel nodes read from the graph's DOT dump."""
+    import warnings
+    graph = torch.cuda.CUDAGraph(keep_graph=True)   # never instantiated
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the debug API's beta warning
+        path = Path(tmp) / "call.dot"
+        graph.debug_dump(str(path))
+        dot = path.read_text()
+    del graph
+    labels = re.findall(r'"graph_\d+_node_\d+"\s*\[(.*?)\];', dot, re.S)
+    return sum("KERNEL" in label and kernel_name in label
+               for label in labels)
 
 
 def _launches(smoke, path, name):
@@ -3075,12 +3200,14 @@ def phase_times(smoke: Smoke) -> None:
             kernels[-1][arch] = _decode_entry(smoke, gen, flush, c.n_heads,
                                               c.n_kv_heads, c.head_dim, arch)
         # flash: the full-width cache-free forward's attention, in fp32 (the
-        # main path) and in bf16 (nested in the fp32 entry), and in fp32 at
-        # jamba's, qwen3-moe's, whisper's and phi-3-vision's heads (nested)
+        # main path) and in bf16 (nested in the fp32 entry; also at the
+        # lm-forward module's shape), and in fp32 at jamba's, qwen3-moe's,
+        # whisper's and phi-3-vision's heads (nested)
         kernels.append(_flash_entry(smoke, gen, flush, hq, hkv, hd, scale,
                                     f32))
         kernels[-1]["bf16"] = _flash_entry(smoke, gen, flush, hq, hkv, hd,
                                            scale, torch.bfloat16)
+        kernels[-1]["bf16_lm_forward"] = _flash_lm_shape(smoke)
         for arch in (JAMBA, QWEN_MOE, WHISPER, PHI3V):
             c = _full_cfg(arch, "pallas")
             kernels[-1][arch] = _flash_entry(
@@ -3112,27 +3239,18 @@ def _decode_entry(smoke, gen, flush, hq, hkv, hd, arch) -> dict:
     v = _randn(gen, (BATCH, s_cache, hkv, hd), f32)
     kq, kk, kv = (q[:, :, None], k[:, :length].transpose(1, 2),
                   v[:, :length].transpose(1, 2))
-    got = da.decode_attention(q, k, v, length, scale=scale)
-    want = da.decode_attention_plain(q, k, v, length, scale=scale)
     nbytes = 4 * (2 * BATCH * length * hkv * hd + 2 * BATCH * hq * hd)
     flops = 4 * BATCH * hq * length * hd
     return _kernel_entry(
-        "decode_attention",
+        smoke, flush, "decode_attention",
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:63",
-        smoke, _launches(smoke, f"serve {arch}", "decode_attention"),
-        got, want,
-        time_ms(lambda: da.decode_attention(q, k, v, length, scale=scale),
-                flush),
-        time_ms(lambda: da.decode_attention_plain(q, k, v, length,
-                                                  scale=scale), flush),
-        time_ms(lambda: F.scaled_dot_product_attention(
-            kq, kk, kv, scale=scale, enable_gqa=True), flush),
-        [device_time(lambda: da.decode_attention(q, k, v, length,
-                                                 scale=scale),
-                     flush, "decode_kernel", clean_l2=clean)
-         for clean in (False, True)],
-        nbytes, flops,
+        _launches(smoke, f"serve {arch}", "decode_attention"),
+        lambda: da.decode_attention(q, k, v, length, scale=scale),
+        lambda: da.decode_attention_plain(q, k, v, length, scale=scale),
+        lambda: F.scaled_dot_product_attention(kq, kk, kv, scale=scale,
+                                               enable_gqa=True),
+        "decode_kernel", 1, nbytes, flops,
         {"b": BATCH, "hq": hq, "hkv": hkv, "hd": hd, "s_cache": s_cache,
          "length": length, "dtype": "float32"})
 
@@ -3165,61 +3283,62 @@ def _ssd_entry(smoke, gen, flush, arch) -> dict:
     flops = n_chunks * BATCH * (2 * n * tri * g
                                 + h * (2 * p * tri + 4 * chunk * n * p))
     return _kernel_entry(
-        "ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        smoke, flush, "ssd_scan",
+        "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan/ssd_scan.py:69",
-        smoke, _launches(smoke, f"serve {arch}", "ssd_scan"),
-        got[0], want[0],
-        time_ms(lambda: ssd.ssd(*args, chunk=chunk, impl="pallas",
-                                initial_state=init), flush),
-        time_ms(lambda: ssd.ssd(*args, chunk=chunk, impl="xla",
-                                initial_state=init), flush, reps=20),
+        _launches(smoke, f"serve {arch}", "ssd_scan"),
+        lambda: ssd.ssd(*args, chunk=chunk, impl="pallas",
+                        initial_state=init)[0],
+        lambda: ssd.ssd(*args, chunk=chunk, impl="xla",
+                        initial_state=init)[0],
         None,
         # all four phases' kernels (ssd_cb, ssd_chunk_state,
         # ssd_state_pass, ssd_chunk_scan)
-        [device_time(lambda: ssd.ssd(*args, chunk=chunk, impl="pallas",
-                                     initial_state=init),
-                     flush, "ssd_", clean_l2=clean)
-         for clean in (False, True)],
-        nbytes, flops,
+        "ssd_", 4, nbytes, flops,
         {"b": BATCH, "L": PROMPT, "h": h, "p": p, "g": g, "n": n,
-         "chunk": chunk, "dtype": "float32"},
+         "chunk": chunk, "dtype": "float32"}, plain_reps=20,
         library_note="none: no single PyTorch call computes an SSD scan")
 
 
 def _flash_entry(smoke, gen, flush, hq, hkv, hd, scale, dtype,
                  arch=LLAMA) -> dict:
     """The flash kernel's `kernels`-line entry at the full-width forward
-    shape of `arch` (llama3.2-3b's by default) in `dtype`."""
+    shape of `arch` (llama3.2-3b's by default) in `dtype`; the forwards run
+    in fp32, so a bf16 entry has no main-path launches."""
+    launches = (_launches(smoke, f"forward {arch}", "flash_attention")
+                if dtype == torch.float32 else None)
+    return _flash_shape_entry(smoke, gen, flush, BATCH, PROMPT, hq, hkv, hd,
+                              scale, dtype, launches)
+
+
+def _flash_shape_entry(smoke, gen, flush, b, s, hq, hkv, hd, scale, dtype,
+                       launches) -> dict:
+    """The flash kernel's entry at [b, s] with hq / hkv heads of hd in
+    `dtype`: fp32 on the mma.sync kernel, bf16 on the wgmma one, whose
+    design bound (P.V in two passes: 1.5x the FLOP) stands beside the
+    FLOP-only one."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
-    q = _randn(gen, (BATCH, PROMPT, hq, hd), dtype)
-    k = _randn(gen, (BATCH, PROMPT, hkv, hd), dtype)
-    v = _randn(gen, (BATCH, PROMPT, hkv, hd), dtype)
-    got = fa.flash_attention(q, k, v, causal=True, scale=scale)
-    want = fa.flash_attention_plain(q, k, v, causal=True, scale=scale)
-    nbytes = q.element_size() * (2 * BATCH * PROMPT * hq * hd
-                                 + 2 * BATCH * PROMPT * hkv * hd)
-    flops = 4 * BATCH * hq * hd * (PROMPT * (PROMPT + 1) // 2)
+    q = _randn(gen, (b, s, hq, hd), dtype)
+    k = _randn(gen, (b, s, hkv, hd), dtype)
+    v = _randn(gen, (b, s, hkv, hd), dtype)
+    nbytes = q.element_size() * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
+    flops = 4 * b * hq * hd * (s * (s + 1) // 2)
+    bf16 = dtype == torch.bfloat16
     return _kernel_entry(
-        "flash_attention",
+        smoke, flush, "flash_attention",
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:79",
-        smoke, _launches(smoke, f"forward {arch}", "flash_attention"),
-        got, want,
-        time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
-                                           scale=scale), flush),
-        time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
-                                                 scale=scale), flush),
-        time_ms(lambda: F.scaled_dot_product_attention(
+        launches,
+        lambda: fa.flash_attention(q, k, v, causal=True, scale=scale),
+        lambda: fa.flash_attention_plain(q, k, v, causal=True, scale=scale),
+        lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, scale=scale, enable_gqa=True), flush),
-        [device_time(lambda: fa.flash_attention(q, k, v, causal=True,
-                                                scale=scale),
-                     flush, "flash_kernel", clean_l2=clean)
-         for clean in (False, True)],
-        nbytes, flops,
-        {"b": BATCH, "s": PROMPT, "hq": hq, "hkv": hkv, "hd": hd,
-         "dtype": str(dtype).removeprefix("torch.")}, dtype=dtype)
+            is_causal=True, scale=scale, enable_gqa=True),
+        "flash_wgmma_kernel" if bf16 else "flash_kernel", 1, nbytes, flops,
+        {"b": b, "s": s, "hq": hq, "hkv": hkv, "hd": hd,
+         "dtype": str(dtype).removeprefix("torch.")}, dtype=dtype,
+        passes=1.5 if bf16 else 1.0)
 
 
 def _model_times(smoke, flush, arch) -> None:
@@ -3308,33 +3427,67 @@ def _profile(fn) -> dict:
                             for e in top]}
 
 
-def _kernel_entry(name, source, replaces, smoke, launches, got, want, ms,
-                  plain_ms, library_ms, device, nbytes, flops, shape,
-                  library_note=None, dtype=torch.float32):
-    """One entry of the `kernels` line; checks the timed inputs' output
-    against the plain version at `dtype`'s tolerance.  `device` holds
-    device_time()'s (ms, device kernels per call) after the write flush
-    and after the read flush.  The operations bound is at FLOP_PER_S of
-    `dtype`; the bound at the fp32 rate outside the tensor cores is kept
-    beside it."""
-    err, ok = err_within(got, want, TOL[dtype])
-    smoke.check(f"{name}: timed inputs vs plain ({shape['dtype']})", ok,
+def _kernel_entry(smoke, flush, name, source, replaces, launches, run, plain,
+                  library, kernel_name, per_call, nbytes, flops, shape,
+                  dtype=torch.float32, passes=1.0, plain_reps=30,
+                  library_note=None) -> dict:
+    """One entry of the `kernels` line: the kernel's wrapper call `run`,
+    its plain version `plain` and the one PyTorch call `library` that
+    computes the same function (None where there is none), at one shape.
+    Checks the kernel's output against the plain version's at `dtype`'s
+    tolerance.  `ms`, `plain_ms`, `library_ms`: time_ms (events around the
+    call, its host cost included); `device_ms` (write flush),
+    `device_ms_clean_l2` (read flush) and `library_device_ms`: device_time.
+    Checks that one call enqueues `per_call` device kernels (the
+    wrapper's own count) and that no device time is under the bound.  The
+    operations bound takes the FLOP at FLOP_PER_S of `dtype`; with `passes`
+    > 1 the design's bound (the FLOP times the passes its arithmetic takes)
+    stands beside it, as the bound at the fp32 rate outside the tensor
+    cores does."""
+    got = run()
+    err, ok = err_within(got, plain(), TOL[dtype])
+    what = f"{shape['dtype']} " + " ".join(
+        f"{k}={v}" for k, v in shape.items() if k != "dtype")
+    smoke.check(f"{name}: timed inputs vs plain ({what})", ok,
                 f"max_abs_err={err:.3g}")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FLOP_PER_S[dtype] * 1e3
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "kernel_ms": ms, "device_ms": device[0][0],
-            "device_ms_clean_l2": device[1][0],
-            "device_kernels_per_call": device[0][1],
-            "device_ms_by_kernel": device[0][2], "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_ms_fp32_fma": max(t_bytes,
-                                     flops / FP32_FLOP_PER_S * 1e3),
-            "library_ms": library_ms,
-            **({"library_note": library_note} if library_note else {}),
-            "shape": shape, "bytes": nbytes, "flops": flops}
+    bound = max(t_bytes, t_ops)
+    device = device_time(run, flush, kernel_name)
+    clean = device_time(run, flush, clean_l2=True)
+    smoke.check(f"{name}: device kernels a call ({what})",
+                device["kernels_per_call"] == per_call,
+                f"{device['kernels_per_call']} (want {per_call})")
+    smoke.check(f"{name}: no device time under the bound ({what})",
+                min(device["ms"], clean["ms"]) >= bound,
+                f"device_ms {device['ms']:.4g}, clean L2 {clean['ms']:.4g}, "
+                f"bound_ms {bound:.4g}")
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "max_abs_err": err,
+             "ms": time_ms(run, flush), "device_ms": device["ms"],
+             "device_ms_clean_l2": clean["ms"],
+             "device_kernels_per_call": device["kernels_per_call"],
+             "device_ms_by_kernel": device["by_kernel"],
+             "plain_ms": time_ms(plain, flush, reps=plain_reps),
+             "bound_ms": bound,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bound_ms_fp32_fma": max(t_bytes,
+                                      flops / FP32_FLOP_PER_S * 1e3),
+             "library_ms": time_ms(library, flush) if library else None,
+             "library_device_ms": (device_time(library, flush)["ms"]
+                                   if library else None),
+             **({"library_note": library_note} if library_note else {}),
+             "shape": shape, "bytes": nbytes, "flops": flops}
+    entry["kernel_ms"] = entry["ms"]
+    if passes != 1.0:
+        entry["bound_ms_design"] = max(t_bytes, passes * t_ops)
+    print(f"   {name} {what}: device {entry['device_ms']:.4f} ms (clean L2 "
+          f"{entry['device_ms_clean_l2']:.4f}), events {entry['ms']:.4f}, "
+          f"library device {entry['library_device_ms']}, bound "
+          f"{bound:.4f} ({entry['bound_by']})"
+          + (f", design bound {entry['bound_ms_design']:.4f}"
+             if passes != 1.0 else "") + f" [{card_line()}]", flush=True)
+    return entry
 
 
 def _sharded_launches(r) -> None:
@@ -3363,6 +3516,69 @@ def _examples_launches(r) -> None:
             if counts.get(entry["name"])}
 
 
+def profiler_census(smoke: Smoke, after: str) -> None:
+    """How many of 20 launches of the fp32 flash kernel (a small shape)
+    torch.profiler records in this process now: the record of which phase
+    leaves the profiler losing kernel records (`profiler_census`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ops as fa
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    q, k, v = (_randn(gen, (1, 256, h, 64), torch.float32) for h in (4, 2, 2))
+    fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and "flash_kernel" in e.key)
+    smoke.results.setdefault("profiler_census", {})[after] = n
+    print(f"   profiler census after {after}: {n} of 20 kernel records",
+          flush=True)
+
+
+def phase_times_fresh(smoke: Smoke) -> None:
+    """Phase 7 in a fresh process (`python3 chip_smoke.py --times DIR`):
+    after the phases before it torch.profiler drops kernel records in this
+    process (`profiler_census`), and phase 7's breakdowns (`_profile`,
+    `device_ms_by_kernel`) are read from it.  The main paths' launch
+    counts go to the child and its results and failures come back through
+    DIR."""
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "launches.json").write_text(
+            json.dumps(smoke.results.get("launches", {})))
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--times", tmp], timeout=900)
+        out = Path(tmp) / "times.json"
+        if not out.exists():
+            smoke.check("7 times: the fresh process wrote its results", False,
+                        f"rc {proc.returncode}")
+            return
+        child = json.loads(out.read_text())
+    smoke.failures += child["failures"]
+    for key in ("kernels", "times", "profile"):
+        if key in child["results"]:
+            smoke.results[key] = child["results"][key]
+    for key in ("phases", "profiler_census"):
+        smoke.results.setdefault(key, {}).update(child["results"][key])
+
+
+def times_child(tmp: str) -> int:
+    """The fresh process of phase 7: the card set up as phase 1 sets it
+    (TF32 off), the kernels loaded from phase 1's build."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smoke = Smoke()
+    smoke.results["launches"] = json.loads(
+        (Path(tmp) / "launches.json").read_text())
+    profiler_census(smoke, "the fresh process's start")
+    smoke.phase("7 times", lambda: phase_times(smoke))
+    (Path(tmp) / "times.json").write_text(json.dumps(
+        {"results": smoke.results, "failures": smoke.failures}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -3370,36 +3586,41 @@ def main() -> int:
         return 1
     smoke = Smoke()
     t0 = time.perf_counter()
-    smoke.phase("1 setup and build", lambda: phase_setup(smoke))
-    smoke.phase("2 kernels vs plain", lambda: phase_kernels(smoke))
-    smoke.phase(f"3 serve {LLAMA} at full width",
-                lambda: phase_serve(smoke, LLAMA))
-    smoke.phase(f"4 forward {LLAMA} at full width",
-                lambda: phase_forward(smoke, LLAMA))
-    smoke.phase(f"5 serve {MAMBA} at full width",
-                lambda: phase_serve(smoke, MAMBA))
-    smoke.phase(f"6 forward {MAMBA} at full width",
-                lambda: phase_forward(smoke, MAMBA))
-    smoke.phase("8 FOS daemon on the card", lambda: phase_daemon(smoke))
-    smoke.phase(f"9 {JAMBA} cut to {DEPTH_CUT[JAMBA]} layers at full width",
-                lambda: phase_moe_model(smoke, JAMBA))
-    smoke.phase(f"10 {QWEN_MOE} cut to {DEPTH_CUT[QWEN_MOE]} layers at full "
-                f"width", lambda: phase_moe_model(smoke, QWEN_MOE))
-    smoke.phase(f"11 {WHISPER} at full width and depth",
-                lambda: phase_encdec_vlm(smoke, WHISPER))
-    smoke.phase(f"12 {PHI3V} at full width and depth",
-                lambda: phase_encdec_vlm(smoke, PHI3V))
-    smoke.phase(f"13 train {LLAMA} on the card", lambda: phase_train(smoke))
-    smoke.phase("14 distribution on the card",
-                lambda: phase_distribution(smoke))
-    smoke.phase("15 dry run against the card", lambda: phase_dryrun(smoke))
-    smoke.phase("16 the examples on the card",
-                lambda: phase_examples(smoke))
-    smoke.phase("7 times", lambda: phase_times(smoke))
+    phases = [
+        ("1 setup and build", lambda: phase_setup(smoke)),
+        ("2 kernels vs plain", lambda: phase_kernels(smoke)),
+        (f"3 serve {LLAMA} at full width", lambda: phase_serve(smoke, LLAMA)),
+        (f"4 forward {LLAMA} at full width",
+         lambda: phase_forward(smoke, LLAMA)),
+        (f"5 serve {MAMBA} at full width", lambda: phase_serve(smoke, MAMBA)),
+        (f"6 forward {MAMBA} at full width",
+         lambda: phase_forward(smoke, MAMBA)),
+        ("8 FOS daemon on the card", lambda: phase_daemon(smoke)),
+        (f"9 {JAMBA} cut to {DEPTH_CUT[JAMBA]} layers at full width",
+         lambda: phase_moe_model(smoke, JAMBA)),
+        (f"10 {QWEN_MOE} cut to {DEPTH_CUT[QWEN_MOE]} layers at full width",
+         lambda: phase_moe_model(smoke, QWEN_MOE)),
+        (f"11 {WHISPER} at full width and depth",
+         lambda: phase_encdec_vlm(smoke, WHISPER)),
+        (f"12 {PHI3V} at full width and depth",
+         lambda: phase_encdec_vlm(smoke, PHI3V)),
+        (f"13 train {LLAMA} on the card", lambda: phase_train(smoke)),
+        ("14 distribution on the card", lambda: phase_distribution(smoke)),
+        ("15 dry run against the card", lambda: phase_dryrun(smoke)),
+        ("16 the examples on the card", lambda: phase_examples(smoke)),
+    ]
+    for name, fn in phases:
+        smoke.phase(name, fn)
+        if name.startswith("1 ") and smoke.failures:
+            break                 # no kernels: nothing else can run
+        profiler_census(smoke, name.split()[0])
+    else:
+        smoke.phase("7 times (a fresh process)",
+                    lambda: phase_times_fresh(smoke))
     r = smoke.results
     for key in ("launches", "serve", "forward", "times", "profile",
                 "daemon", "moe_models", "decode_g1", "train", "distribution",
-                "dryrun", "examples", "phases"):
+                "dryrun", "examples", "profiler_census", "phases"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"total {time.perf_counter() - t0:.1f} s; "
@@ -3417,4 +3638,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--times"]:
+        sys.exit(times_child(sys.argv[2]))
     sys.exit(main())

@@ -2,20 +2,30 @@
 
 Replaces the TPU kernel `repro/kernels/flash_attention/flash_attention.py`
 `::flash_attention_bhsd` and its wrapper `ops.py::flash_attention`.  The
-Hopper kernel is `csrc/flash_attention.cu` (CUDA C++, sm_90a).  Both of its
-products run on the TF32 tensor cores (`mma.sync`); fp32 operands are split
-into two tf32 halves and multiplied in three passes (3xTF32), which meets
-the reference's 2e-5 fp32 tolerance where one TF32 pass cannot, so in fp32
-it is bound by three TF32 passes over its FLOP (in bf16 by the bf16
-tensor-core rate, which this route does not approach).  Its design note is
-at the top of the source.
+Hopper kernels are in `csrc/flash_attention.cu` (CUDA C++, sm_90a), one
+route for each input type:
+
+- bf16 runs on the bf16 tensor cores by `wgmma`, its tiles brought by TMA
+  from tensor maps over the model's layout (made per call from the
+  tensors' strides, 16-byte aligned as `_check_cuda_inputs` requires) by
+  a producer warpgroup.  Q.K^T is one bf16 pass; P enters P.V as bf16
+  hi + lo in two passes, so the result keeps fp32 accuracy until its
+  rounding to bf16, and the bound is 1.5x the FLOP at the bf16
+  tensor-core rate.
+- fp32 runs on the TF32 tensor cores by `mma.sync`, each operand split
+  into two tf32 halves and multiplied in three passes (3xTF32), which
+  meets the reference's 2e-5 fp32 tolerance where one TF32 pass cannot;
+  it is bound by three TF32 passes over its FLOP.
+
+The design notes are at the top of the source.
 
 `flash_attention` launches the kernel for causal calls on CUDA tensors and
-runs `flash_attention_plain` for CPU tensors.  Non-causal calls go to the
-plain version on every device, as the reference wrapper sends them to its
-oracle: the kernel is causal by design.  The reference wrapper transposes
-to [B, H, S, hd] and pads S to the block size; the kernel reads the model's
-layout through strides and masks the ragged edge itself.
+runs `flash_attention_plain` for CPU tensors; on CUDA it never falls back
+(a build, tensor-map or launch failure raises).  Non-causal calls go to
+the plain version on every device, as the reference wrapper sends them to
+its oracle: the kernel is causal by design.  The reference wrapper
+transposes to [B, H, S, hd] and pads S to the block size; the kernels read
+the model's layout through strides and mask the ragged edge themselves.
 """
 from __future__ import annotations
 
