@@ -11,6 +11,7 @@ SLO.
     PYTHONPATH=src python -m repro_torch.launch.serve            # on cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
+    PYTHONPATH=src python -m repro_torch.launch.serve --trace-out spans.json
     PYTHONPATH=src python -m repro_torch.launch.serve --daemon [--contract]
         [--trace-out trace.json]
     torchrun --nproc-per-node=<gpus> -m repro_torch.launch.serve
@@ -25,6 +26,7 @@ sequence-sharded over "model" (`steps.build_prefill_step` /
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
@@ -35,6 +37,7 @@ from repro_torch import configs
 from repro_torch.launch import mesh as mesh_mod, steps
 from repro_torch.models import api, io, stack
 from repro_torch.models.api import ShapeCell
+from repro_torch.obs import spans
 from repro_torch.sharding import partition
 
 
@@ -48,6 +51,7 @@ class ServeRun:
     seed: int = 0
     device: str = "cuda"
     attn_impl: str = "pallas"       # "pallas": Hopper kernels | "xla": plain
+    trace_out: str = ""             # write the spans' Chrome trace here
 
 
 def _sync(device: torch.device) -> None:
@@ -68,6 +72,13 @@ def generate(cfg, params, prompt: torch.Tensor, max_new_tokens: int,
     logits t, which come from the prefill (t = 0) and from decode steps
     1..T-1.  Times are wall-clock seconds, each ended by a device
     synchronise.
+
+    While a span recorder is active (`repro_torch.obs.spans`) the call is
+    a `serve.generate` span holding one `serve.prefill` and one
+    `serve.decode_step` a step, both on the device's clock too: the
+    synchronises around the prefill anchor its events, the one after the
+    decode loop resolves them, and the events are created before the
+    prefill.
     """
     device = partition.local(prompt).device
     b, s = prompt.shape
@@ -85,25 +96,35 @@ def generate(cfg, params, prompt: torch.Tensor, max_new_tokens: int,
         def put(t):
             return partition.distribute(t, mesh, partition.to_placements(
                 ("batch", None), rules, mesh))
-    with torch.inference_mode():
+    with torch.inference_mode(), spans.span("serve.generate", b=b, s=s):
+        # the CUDA events of the prefill's and each step's device spans:
+        # the step and each sub-layer's mixer and FFN
+        spans.reserve(device, 2 * max_new_tokens * (1 + 2 * cfg.n_layers))
         _sync(device)
+        spans.anchor(device)
         t0 = time.perf_counter()
-        cache, logits = prefill(params, {**(extra or {}), "tokens": prompt})
-        logits = partition.full(logits)
+        with spans.span("serve.prefill", device=True, b=b, s=s):
+            cache, logits = prefill(params,
+                                    {**(extra or {}), "tokens": prompt})
+            logits = partition.full(logits)
         _sync(device)
+        spans.anchor(device)
         t_prefill = time.perf_counter() - t0
 
         tok = logits.argmax(dim=-1)[:, None].to(torch.int32)
         out_tokens, out_logits = [tok[:, 0]], [logits]
         t0 = time.perf_counter()
         for i in range(max_new_tokens - 1):
-            cache, nxt, logits = decode(params, cache, put(tok), s + i)
-            nxt, logits = partition.full(nxt), partition.full(logits)
-            tok = nxt[:, None]
-            out_tokens.append(nxt)
-            out_logits.append(logits)
+            with spans.span("serve.decode_step", device=True, step=i,
+                            pos=s + i):
+                cache, nxt, logits = decode(params, cache, put(tok), s + i)
+                nxt, logits = partition.full(nxt), partition.full(logits)
+                tok = nxt[:, None]
+                out_tokens.append(nxt)
+                out_logits.append(logits)
         _sync(device)
         t_decode = time.perf_counter() - t0
+        spans.resolve()
     return (torch.stack(out_tokens, dim=1), torch.stack(out_logits, dim=1),
             t_prefill, t_decode)
 
@@ -158,7 +179,9 @@ def serve(run: ServeRun, log=print) -> dict:
     [B, max_new_tokens, V] on the device.  Launched over more than one
     rank it serves over all of them (see the module docstring); the
     params and the prompt are drawn whole on each rank from the same
-    seeds, and each rank keeps its slices.
+    seeds, and each rank keeps its slices.  With `run.trace_out` (rank 0)
+    records the served path's spans (`spans`, also in the result) and
+    writes them there as a Chrome trace.
     """
     sharded = mesh_mod.launched_world() > 1
     if sharded:
@@ -173,16 +196,25 @@ def serve(run: ServeRun, log=print) -> dict:
                                   ("data", "model"))
         rules = partition.make_rules("serve")
         args = shard_inputs(cfg, params, prompt, batch, mesh, rules)
-    tokens, logits, t_prefill, t_decode = generate(
-        cfg, *args[:2], run.max_new_tokens, extra=args[2], mesh=mesh,
-        rules=rules)
+    # with trace_out, rank 0 records the served path's spans
+    traced = bool(run.trace_out) and (
+        not sharded or torch.distributed.get_rank() == 0)
+    with (spans.recorder(device=True) if traced
+          else contextlib.nullcontext()) as records:
+        tokens, logits, t_prefill, t_decode = generate(
+            cfg, *args[:2], run.max_new_tokens, extra=args[2], mesh=mesh,
+            rules=rules)
     toks_per_s = (run.batch * (run.max_new_tokens - 1)) / max(t_decode, 1e-9)
     log(f"[serve] {run.arch} on {device} ({run.attn_impl}): prefill "
         f"{t_prefill * 1e3:.1f} ms, decode {toks_per_s:.1f} tok/s "
         f"(batch={run.batch})")
+    if traced:
+        spans.export_chrome_trace(records, run.trace_out)
+        log(f"[serve] spans: {len(records['spans'])} -> {run.trace_out} "
+            f"(open in Perfetto); counters {records['counters']}")
     return {"prefill_s": t_prefill, "decode_tok_per_s": toks_per_s,
             "tokens": tokens.cpu().numpy(), "prompt": prompt,
-            "extra": batch, "logits": logits}
+            "extra": batch, "logits": logits, "spans": records}
 
 
 @dataclasses.dataclass
@@ -337,9 +369,10 @@ def main():
     ap.add_argument("--contract-rate", type=float, default=50.0,
                     help="contract target arrival rate (jobs/s)")
     ap.add_argument("--trace-out", default="",
-                    help="with --daemon: attach the flight recorder and "
-                         "write a Chrome trace JSON here (open in "
-                         "Perfetto)")
+                    help="write a Chrome trace JSON here (open in "
+                         "Perfetto): with --daemon the flight recorder's, "
+                         "else the served path's spans "
+                         "(repro_torch.obs.spans)")
     args = ap.parse_args()
     if args.daemon:
         serve_daemon(DaemonServeRun(priority_hi=args.priority_hi,
@@ -352,7 +385,8 @@ def main():
         return
     serve(ServeRun(arch=args.arch, batch=args.batch,
                    prompt_len=args.prompt_len,
-                   max_new_tokens=args.max_new_tokens, device=args.device))
+                   max_new_tokens=args.max_new_tokens, device=args.device,
+                   trace_out=args.trace_out))
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import Replicate, Shard
 
+from repro_torch.obs import spans
 from repro_torch.sharding import partition
 
 
@@ -121,6 +122,18 @@ def moe_dense(params, x: torch.Tensor, spec: MoESpec):
 # ---------------------------------------------------------------------------
 
 
+def _pairs_past_cap(key_s, rank, e_loc: int, cap: int):
+    """The local pairs `_sorted_dispatch` drops: a count for
+    `repro_torch.obs.spans`."""
+    return torch.count_nonzero((key_s < e_loc) & (rank >= cap))
+
+
+def _experts_hit(weight):
+    """The experts with at least one kept pair (weight [E_loc, C], 0 in an
+    empty slot): a count for `repro_torch.obs.spans`."""
+    return torch.count_nonzero(weight.amax(1))
+
+
 def _sorted_dispatch(xt, top_p, top_i, cap: int, spec: MoESpec,
                      e_lo: int = 0, e_loc: int | None = None):
     """Gather the tokens of the local experts [e_lo, e_lo + e_loc) into
@@ -146,6 +159,8 @@ def _sorted_dispatch(xt, top_p, top_i, cap: int, spec: MoESpec,
     rank = (torch.arange(key_s.numel(), device=dev)
             - torch.searchsorted(key_s, key_s))
     within = (key_s < e_loc) & (rank < cap)
+    spans.count_device("moe.pairs_dropped", _pairs_past_cap, key_s, rank,
+                       e_loc, cap)
     slot = torch.where(within, key_s * cap + rank.clamp(max=cap - 1),
                        e_loc * cap)
     src_idx = torch.zeros(e_loc * cap + 1, dtype=torch.long, device=dev)
@@ -184,35 +199,45 @@ def moe_ep(params, x: torch.Tensor, spec: MoESpec, mesh=None,
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    top_p, top_i, aux = router_probs(params, xt, spec)
-    cap = _capacity(t, spec)
-    if mesh is None:
-        xe, src_idx, weight = _sorted_dispatch(xt, top_p, top_i, cap, spec)
-    else:
-        ep = spec.ep_axis
-        if ep in partition.flat_axes(batch_axes):
-            raise ValueError(f"the expert axis {ep!r} also shards the "
-                             f"batch {batch_axes}")
-        n_ep = partition.axis_size(mesh, ep)
-        assert spec.n_experts % n_ep == 0, (spec.n_experts, n_ep)
-        e_loc = spec.n_experts // n_ep
-        assert params["w1"].shape[0] == e_loc, (params["w1"].shape, e_loc)
-        e_lo = partition.axis_index(mesh, ep) * e_loc
-        xe, src_idx, weight = _sorted_dispatch(
-            partition.copy_to_group(xt, mesh, ep),
-            partition.copy_to_group(top_p, mesh, ep), top_i, cap, spec,
-            e_lo, e_loc)
-    ye = _expert_ffn(params["w1"], params["w3"], params["w2"], xe)
-    ye = ye * weight[..., None].to(ye.dtype)
-    yt = torch.zeros((t, d), dtype=ye.dtype, device=x.device)
-    yt.index_add_(0, src_idx.reshape(-1), ye.reshape(-1, d))
-    y = yt.reshape(b, s, d)
-    if mesh is not None:
-        if sp:
-            y = partition.scatter_to_group(y, mesh, sp, 1)
+    with spans.span("moe.route"):
+        top_p, top_i, aux = router_probs(params, xt, spec)
+        cap = _capacity(t, spec)
+    spans.count("moe.pairs", t * spec.top_k)
+    with spans.span("moe.dispatch"):
+        if mesh is None:
+            xe, src_idx, weight = _sorted_dispatch(xt, top_p, top_i, cap,
+                                                   spec)
         else:
-            y = partition.reduce_from_group(y, mesh, spec.ep_axis)
-        aux = _batch_mean(aux, mesh, batch_axes)
+            ep = spec.ep_axis
+            if ep in partition.flat_axes(batch_axes):
+                raise ValueError(f"the expert axis {ep!r} also shards the "
+                                 f"batch {batch_axes}")
+            n_ep = partition.axis_size(mesh, ep)
+            assert spec.n_experts % n_ep == 0, (spec.n_experts, n_ep)
+            e_loc = spec.n_experts // n_ep
+            assert params["w1"].shape[0] == e_loc, (params["w1"].shape,
+                                                    e_loc)
+            e_lo = partition.axis_index(mesh, ep) * e_loc
+            xe, src_idx, weight = _sorted_dispatch(
+                partition.copy_to_group(xt, mesh, ep),
+                partition.copy_to_group(top_p, mesh, ep), top_i, cap, spec,
+                e_lo, e_loc)
+    # the experts the product reads, and those a kept pair was routed to
+    spans.count("moe.experts_read", weight.shape[0])
+    spans.count_device("moe.experts_hit", _experts_hit, weight)
+    with spans.span("moe.experts"):
+        ye = _expert_ffn(params["w1"], params["w3"], params["w2"], xe)
+    with spans.span("moe.combine"):
+        ye = ye * weight[..., None].to(ye.dtype)
+        yt = torch.zeros((t, d), dtype=ye.dtype, device=x.device)
+        yt.index_add_(0, src_idx.reshape(-1), ye.reshape(-1, d))
+        y = yt.reshape(b, s, d)
+        if mesh is not None:
+            if sp:
+                y = partition.scatter_to_group(y, mesh, sp, 1)
+            else:
+                y = partition.reduce_from_group(y, mesh, spec.ep_axis)
+            aux = _batch_mean(aux, mesh, batch_axes)
     return y, aux
 
 

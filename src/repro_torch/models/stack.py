@@ -56,6 +56,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch import tree as tree_mod
 from repro_torch.models import api, layers, mamba as mamba_mod, moe as moe_mod
 from repro_torch.models.api import ModelConfig
+from repro_torch.obs import spans
 from repro_torch.sharding import partition
 
 
@@ -189,6 +190,10 @@ def _remat(fn, cfg: ModelConfig):
     return run
 
 
+# the span of each sub-layer's mixer (`repro_torch.obs.spans`)
+_SPAN = {"attn": "layer.attn", "mamba": "layer.ssm"}
+
+
 def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
               cache=None, cache_pos=None, enc_out=None, causal=True,
               par=None):
@@ -204,38 +209,41 @@ def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
     batch_axes = None if par is None else par.batch_axes
     sp = () if par is None else par.sp
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if mixer == "attn":
-        spec = cfg.attn_spec
-        if not causal:
-            spec = dataclasses.replace(spec, causal=False)
-        # attention writes the new K/V into the cache views itself
-        y = _seq_parallel(lambda x, t, s: layers.attention(
-            sub["attn"], x, spec, positions, attn_impl=cfg.attn_impl,
-            kv_cache=cache, cache_pos=cache_pos, mesh=mesh, tp=t, sp=s)[0],
-            _norm(sub, "ln1", h, cfg, par), tp.get("attn", ()), par)
-    elif sp:    # sequence parallelism has no cache
-        y = _seq_parallel(lambda x, t, s: mamba_mod.mamba_block(
-            sub["mamba"], x, cfg.mamba_spec, mesh=mesh, tp=t, sp=s)[0],
-            _norm(sub, "ln1", h, cfg, par), tp.get("ssm", ()), par)
-    else:
-        views = None if cache is None else (
-            cache["ssm"], cache["conv_x"], cache["conv_bc"])
-        ssm_tp = tp.get("ssm", ())
-        # under the SSM's tensor parallelism the state's local slices are
-        # this rank's heads and channels; otherwise its batch shard whole
-        state = None if views is None else tuple(
-            partition.local(v) if ssm_tp
-            else partition.keep_batch(v, batch_axes) for v in views)
-        y, new_state = mamba_mod.mamba_block(
-            sub["mamba"], _norm(sub, "ln1", h, cfg), cfg.mamba_spec,
-            state=state, mesh=mesh, tp=ssm_tp)
-        if cache is not None:
-            for view, old, new in zip(views, state, new_state):
-                if ssm_tp:
-                    old.copy_(new)
-                else:
-                    partition.store_batch(view, new, batch_axes)
-    h = h + y
+    with spans.span(_SPAN[mixer], device=True):
+        if mixer == "attn":
+            spec = cfg.attn_spec
+            if not causal:
+                spec = dataclasses.replace(spec, causal=False)
+            # attention writes the new K/V into the cache views itself
+            y = _seq_parallel(lambda x, t, s: layers.attention(
+                sub["attn"], x, spec, positions, attn_impl=cfg.attn_impl,
+                kv_cache=cache, cache_pos=cache_pos, mesh=mesh, tp=t,
+                sp=s)[0], _norm(sub, "ln1", h, cfg, par),
+                tp.get("attn", ()), par)
+        elif sp:    # sequence parallelism has no cache
+            y = _seq_parallel(lambda x, t, s: mamba_mod.mamba_block(
+                sub["mamba"], x, cfg.mamba_spec, mesh=mesh, tp=t, sp=s)[0],
+                _norm(sub, "ln1", h, cfg, par), tp.get("ssm", ()), par)
+        else:
+            views = None if cache is None else (
+                cache["ssm"], cache["conv_x"], cache["conv_bc"])
+            ssm_tp = tp.get("ssm", ())
+            # under the SSM's tensor parallelism the state's local slices
+            # are this rank's heads and channels; otherwise its batch
+            # shard whole
+            state = None if views is None else tuple(
+                partition.local(v) if ssm_tp
+                else partition.keep_batch(v, batch_axes) for v in views)
+            y, new_state = mamba_mod.mamba_block(
+                sub["mamba"], _norm(sub, "ln1", h, cfg), cfg.mamba_spec,
+                state=state, mesh=mesh, tp=ssm_tp)
+            if cache is not None:
+                for view, old, new in zip(views, state, new_state):
+                    if ssm_tp:
+                        old.copy_(new)
+                    else:
+                        partition.store_batch(view, new, batch_axes)
+        h = h + y
     if "xattn" in sub:
         attn_tp = tp.get("attn", ())
         if enc_out is not None:
@@ -256,14 +264,17 @@ def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
             cross_kv=ck, mesh=mesh, tp=t, sp=s)[0],
             _norm(sub, "lnx", h, cfg, par), attn_tp, par)
     if ffn == "dense":
-        h = h + _seq_parallel(lambda x, t, s: layers.mlp(
-            sub["mlp"], x, cfg.mlp_kind, mesh, t, s),
-            _norm(sub, "ln2", h, cfg, par), tp.get("mlp", ()), par)
+        with spans.span("layer.mlp", device=True):
+            h = h + _seq_parallel(lambda x, t, s: layers.mlp(
+                sub["mlp"], x, cfg.mlp_kind, mesh, t, s),
+                _norm(sub, "ln2", h, cfg, par), tp.get("mlp", ()), par)
     elif ffn == "moe":
         sharded = () if mesh is None else (mesh, batch_axes, sp)
-        y, aux = moe_mod.moe_ffn(sub["moe"], _norm(sub, "ln2", h, cfg, par),
-                                 moe_spec(cfg), *sharded)
-        h = h + y
+        with spans.span("layer.moe", device=True):
+            y, aux = moe_mod.moe_ffn(sub["moe"],
+                                     _norm(sub, "ln2", h, cfg, par),
+                                     moe_spec(cfg), *sharded)
+            h = h + y
     return h, aux
 
 
