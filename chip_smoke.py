@@ -95,11 +95,14 @@ the final `{"ok": true, ...}` line from printing:
      fp32) at full width, and
  10. qwen3-moe-30b-a3b cut to 16 of its 48 layers (10.59 B params) at full
      width: served as phases 3 and 5 (the kernel path, MoE layers on the
-     gather route): exactly 31 decode and 7 SSD launches (jamba) / 496
-     decode launches (qwen3-moe) and no other kernel, every step's logits
-     within 1e-3 of a teacher-forced plain rerun (plain attention and SSD,
-     the one-hot MoE oracle), with the (token, expert) routes that differ
-     between the two runs printed per MoE sub-layer; the forward (1 flash
+     gather route, the decode step's CUDA graph): exactly 31 decode and 7
+     SSD launches (jamba) / 496 decode launches (qwen3-moe) and no other
+     kernel; the same run with every decode step eager, its routes
+     recorded, equal to it bit for bit (both under deterministic
+     algorithms), and every step's logits within 1e-3 of a teacher-forced
+     plain rerun (plain attention and SSD, the one-hot MoE oracle), with
+     the (token, expert) routes that differ between the eager and the
+     plain run printed per MoE sub-layer; the forward (1 flash
      and 7 SSD / 16 flash launches, hidden state within 1e-3); one MoE
      layer alone at T=4096 and T=4: the same experts and the same dropped
      pairs on both routes, outputs within 2e-5, aux within 1e-6; and their
@@ -879,11 +882,29 @@ def phase_forward(smoke: Smoke, arch: str) -> None:
 TIE_GAP = 1e-6
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic algorithms for a block (cuBLAS's workspace fixed):
+    the MoE combine's `index_add_` otherwise sums in the order its atomics
+    land, and two runs of one step differ in the last bits."""
+    import os
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = env or ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+
+
 class _Routes:
     """Records each MoE router call's top-k experts, the top k+1
     probabilities (for the gap at the top-k boundary), and which tokens'
     choices were pinned, while a run is inside `record(name)`.  It wraps
-    `moe.router_probs`, which both MoE routes call.
+    `moe.router_probs`, which both MoE routes call, and has every decode
+    step run eager (on a Python position) meanwhile.
 
     A plain rerun records with `follow` set to the run it is held to, and
     is teacher-forced on that run's routes where they tie, as it is on the
@@ -920,10 +941,22 @@ class _Routes:
             log.append((own, top, pinned))
             return top_p, top_i, aux
         moe.router_probs = router_probs
+        # the decode step runs eager while recording: a replayed CUDA
+        # graph (`stack._DecodeGraph`) calls no Python, so no router
+        from repro_torch.models import stack
+        graphed = stack.build_decode_fn
+
+        def eager_decode(cfg, mesh=None, *a, **kw):
+            if mesh is not None:
+                return graphed(cfg, mesh, *a, **kw)
+            return lambda params, cache, tokens, pos: (
+                cache, *stack._decode_step(params, cfg, cache, tokens, pos))
+        stack.build_decode_fn = eager_decode
         try:
             yield
         finally:
             moe.router_probs = real
+            stack.build_decode_fn = graphed
 
     def differ(self, a: str, b: str, n_moe: int) -> dict:
         """(token, expert) routes run `a` chose and run `b`'s own choice did
@@ -984,12 +1017,15 @@ def _sublayer_counts(cfg) -> dict:
 def phase_moe_model(smoke: Smoke, arch: str) -> None:
     """Phases 9 and 10: a DEPTH_CUT model at full width in fp32.  Serve it
     (B=4, a 1024-token prompt, 32 new tokens, greedy, the kernel path with
-    the gather MoE route) and hold every step's logits to a teacher-forced
-    plain rerun (plain attention and SSD, the one-hot MoE oracle) on the
-    same weights; run its forward on both paths; hold one MoE layer's
-    gather route to the oracle at the prefill's and a decode step's token
-    counts; time prefill, decode and the MoE layer, and profile a
-    prefill.  The params are freed before it returns."""
+    the gather MoE route, the decode step's CUDA graph), serve it again
+    with every decode step eager to record its routes, hold the two to
+    each other bit for bit (both under deterministic algorithms), and hold
+    every step's logits to a teacher-forced plain rerun (plain attention
+    and SSD, the one-hot MoE oracle) on the same weights, pinned to the
+    eager run's routes at ties; run its forward on both paths; hold one
+    MoE layer's gather route to the oracle at the prefill's and a decode
+    step's token counts; time prefill, decode and the MoE layer, and
+    profile a prefill.  The params are freed before it returns."""
     from repro_torch.launch.serve import ServeRun, serve
     from repro_torch.models import api, stack
     res = smoke.results.setdefault("moe_models", {}).setdefault(arch, {})
@@ -1003,18 +1039,29 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
           f"({4 * res['params'] / 1e9:.2f} GB in fp32)")
     routes = _Routes()
 
-    # serve, as phases 3 and 5 do
+    # serve, as phases 3 and 5 do (the decode step's CUDA graph), then
+    # again with the decode steps eager, recording their routes: a replay
+    # calls no Python, so no router
     run = ServeRun(arch=arch, reduced=False, batch=BATCH, prompt_len=PROMPT,
                    max_new_tokens=NEW, device=DEVICE, attn_impl="pallas")
-    with _depth_cut(), routes.record("served"):
+    with _depth_cut(), _deterministic():
         _reset_launches()
         out = serve(run)
         launches = _read_launches()
+        with routes.record("served"):
+            eager = serve(run)
     smoke.results.setdefault("launches", {})[f"serve {arch}"] = launches
     _check_launches(smoke, f"serve {arch}", launches, {
         "decode_attention": n["attn"] * (NEW - 1), "flash_attention": 0,
         "ssd_scan": n["mamba"]})
     tokens, logits = torch.from_numpy(out["tokens"]), out["logits"]
+    smoke.check(f"serve {arch}: the graphed decode step equals the eager "
+                f"one bit for bit (tokens, every step's logits)",
+                np.array_equal(out["tokens"], eager["tokens"])
+                and torch.equal(logits, eager["logits"]),
+                f"max_abs_err="
+                f"{float((logits - eager['logits']).abs().max()):.3g}")
+    del eager
     smoke.check(f"serve {arch}: tokens shape and range",
                 tuple(tokens.shape) == (BATCH, NEW)
                 and bool(((tokens >= 0) & (tokens < cfg_k.vocab)).all()))

@@ -23,6 +23,9 @@
 //   - the cache is read in place, in the model's [B, S, Hkv, hd] layout,
 //     through strides: no transposed or padded copy of the cache;
 //   - rows at or past `length` are never read;
+//   - `length` is read from device memory, once by each CTA before it
+//     computes its rows, and clamped to [1, S]: a decode step captured in
+//     a CUDA graph advances it without a new launch;
 //   - each lane loads 16 bytes of a row, a warp covers 32*16 bytes of rows
 //     per step and keeps kUnroll steps in flight (256 CTAs keep ~4 MB of
 //     loads outstanding at fp32, hd = 128), and the running softmax (m, l,
@@ -64,8 +67,8 @@ template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32, G <= 4 ? 2 : 1)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out, int hkv, int g,
-              int length, float scale, int k_sb, int k_ss, int k_sh,
-              int v_sb, int v_ss, int v_sh) {
+              const int* __restrict__ length_ptr, int s_max, float scale,
+              int k_sb, int k_ss, int k_sh, int v_sb, int v_ss, int v_sh) {
   using V = Vec16<T>;
   constexpr int VEC = V::N;            // elements per lane per row
   constexpr int PARTS = HD / VEC;      // 16-byte slices of a row
@@ -88,6 +91,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int slot = warp * RPW + sub;
   const int hq = hkv * g;
 
+  // the valid prefix, read once and clamped to the cache's rows
+  const int length = min(max(__ldg(length_ptr), 1), s_max);
   // this CTA's rows [row0, row1): share = ceil(length / splits) each, the
   // last shares shorter or empty (ops.py::split_rows computes the same)
   const int share = (length + splits - 1) / splits;
@@ -253,7 +258,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void* out;
-  int batch, hkv, g, length, splits;
+  const int* length;
+  int batch, hkv, g, s_max, splits;
   float scale;
   int k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   cudaStream_t stream;
@@ -276,8 +282,8 @@ cudaError_t launch(const Args& a) {
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, decode_kernel<T, HD, G>, static_cast<const T*>(a.q),
       static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out), a.hkv, a.g, a.length, a.scale, a.k_sb, a.k_ss,
-      a.k_sh, a.v_sb, a.v_ss, a.v_sh);
+      static_cast<T*>(a.out), a.hkv, a.g, a.length, a.s_max, a.scale,
+      a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss, a.v_sh);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -307,17 +313,21 @@ cudaError_t dispatch_hd(const Args& a, int hd) {
 extern "C" {
 
 // q, out: [B, Hkv*g, hd] contiguous.  k, v: [B, S, Hkv, hd] with unit stride
-// on hd and the given element strides for b, s and h.  `splits` CTAs (one
-// cluster, 1..8) share each (batch, kv head).  Returns the CUDA error of the
-// launch (0 on success); the kernel runs on `stream`.
+// on hd and the given element strides for b, s and h; `s_max` is S.
+// `length`: one int32 in device memory, the valid prefix, which the kernel
+// clamps to [1, S].  `splits` CTAs (one cluster, 1..8) share each (batch,
+// kv head).  Returns the CUDA error of the launch (0 on success); the
+// kernel runs on `stream`.
 int decode_attention(const void* q, const void* k, const void* v, void* out,
-                     int dtype, int batch, int hkv, int g, int hd, int length,
-                     int splits, float scale, int k_sb, int k_ss, int k_sh,
-                     int v_sb, int v_ss, int v_sh, void* stream) {
-  if (batch < 1 || hkv < 1 || g < 1 || length < 1 || splits < 1 ||
-      splits > kMaxSplits)
+                     int dtype, int batch, int hkv, int g, int hd,
+                     const void* length, int s_max, int splits, float scale,
+                     int k_sb, int k_ss, int k_sh, int v_sb, int v_ss,
+                     int v_sh, void* stream) {
+  if (batch < 1 || hkv < 1 || g < 1 || length == nullptr || s_max < 1 ||
+      splits < 1 || splits > kMaxSplits)
     return cudaErrorInvalidValue;
-  Args a{q, k, v, out, batch, hkv, g, length, splits, scale,
+  Args a{q, k, v, out, static_cast<const int*>(length), batch, hkv, g,
+         s_max, splits, scale,
          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
          static_cast<cudaStream_t>(stream)};
   cudaError_t err;

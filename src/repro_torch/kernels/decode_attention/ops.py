@@ -12,7 +12,10 @@ thread-block cluster of `split_count(...)` CTAs, each streaming the rows
 `decode_attention_plain` only for CPU tensors.  The reference wrapper
 transposes the cache to [B, Hkv, S, hd] and pads S; the kernel reads the
 model's [B, S, Hkv, hd] cache in place instead, and masks `>= length`
-itself, so neither copy exists here.
+itself, so neither copy exists here.  The kernel reads `length` from
+device memory: a one-element int32 tensor (a decode step's position,
+which a replayed CUDA graph advances without a host read), or an int,
+which the wrapper puts in such a tensor.
 """
 from __future__ import annotations
 
@@ -60,8 +63,8 @@ def decode_attention_plain(q, k_cache, v_cache, length: int, *,
 
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
-_ARGTYPES = ([_c_ptr] * 4 + [_c_int] * 7 + [ctypes.c_float]
-             + [_c_int] * 6 + [_c_ptr])
+_ARGTYPES = ([_c_ptr] * 4 + [_c_int] * 5 + [_c_ptr] + [_c_int] * 2
+             + [ctypes.c_float] + [_c_int] * 6 + [_c_ptr])
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -78,7 +81,7 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _check_cuda_inputs(q, k, v, length: int):
+def _check_cuda_inputs(q, k, v, length):
     b, hq, hd = q.shape
     if k.shape != v.shape or k.dim() != 4 or k.shape[0] != b \
             or k.shape[3] != hd:
@@ -96,7 +99,12 @@ def _check_cuda_inputs(q, k, v, length: int):
         raise ValueError("q and the caches must be on one device")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
-    if not 1 <= length <= k.shape[1]:
+    if isinstance(length, torch.Tensor):
+        # read by the kernel, which clamps it to [1, S]
+        if length.dtype != torch.int32 or length.numel() != 1 \
+                or length.device != q.device:
+            raise ValueError("a device length is one int32 on q's device")
+    elif not 1 <= length <= k.shape[1]:
         raise ValueError(f"length {length} outside [1, {k.shape[1]}]")
     vec = 16 // q.element_size()
     for t in (q, k, v):
@@ -106,14 +114,16 @@ def _check_cuda_inputs(q, k, v, length: int):
                              "aligned rows and int32 strides")
 
 
-def decode_attention(q, k_cache, v_cache, length: int, *, scale: float):
-    """q: [B,Hq,hd]; caches [B,S,Hkv,hd]; length: valid prefix length.
-    Returns [B,Hq,hd] in q's dtype; fp32 accumulation.  Raises under
-    autograd, on every device, as the reference does."""
+def decode_attention(q, k_cache, v_cache, length, *, scale: float):
+    """q: [B,Hq,hd]; caches [B,S,Hkv,hd]; length: valid prefix length, an
+    int or a one-element int32 tensor on q's device (which the kernel
+    clamps to [1, S]).  Returns [B,Hq,hd] in q's dtype; fp32
+    accumulation.  Raises under autograd, on every device, as the
+    reference does."""
     _build.require_no_grad("decode_attention", "attn_impl", q, k_cache,
                            v_cache)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, length,
+        return decode_attention_plain(q, k_cache, v_cache, int(length),
                                       scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
@@ -122,6 +132,8 @@ def decode_attention(q, k_cache, v_cache, length: int, *, scale: float):
     k = k_cache if k_cache.dtype == q.dtype else k_cache.to(q.dtype)
     v = v_cache if v_cache.dtype == q.dtype else v_cache.to(q.dtype)
     _check_cuda_inputs(q, k, v, length)
+    if not isinstance(length, torch.Tensor):
+        length = torch.full((1,), length, dtype=torch.int32, device=q.device)
     b, hq, hd = q.shape
     hkv = k.shape[2]
     out = torch.empty_like(q)
@@ -129,8 +141,8 @@ def decode_attention(q, k_cache, v_cache, length: int, *, scale: float):
     lib = _lib()
     rc = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], b, hkv, hq // hkv, hd, int(length), splits,
-        float(scale), *k.stride()[:3], *v.stride()[:3],
+        _DTYPE_CODE[q.dtype], b, hkv, hq // hkv, hd, length.data_ptr(),
+        k.shape[1], splits, float(scale), *k.stride()[:3], *v.stride()[:3],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "decode_attention", rc)
     decode_attention.launches += 1

@@ -289,9 +289,16 @@ def sharded_cache_attention(q, k_cache, v_cache, spec: AttentionSpec,
 
 
 def _write_rows(cache: torch.Tensor, start: int, new: torch.Tensor,
-                cache_pos: int) -> None:
+                cache_pos) -> None:
     """Write the rows [cache_pos, cache_pos + s) of `new` that fall in
-    this local slice (global rows [start, start + len)) in place."""
+    this local slice (global rows [start, start + len)) in place.  A
+    `cache_pos` held on the device (a one-element int tensor; one device,
+    start 0) writes them by `index_copy_` at the rows it gives, with no
+    host read."""
+    if isinstance(cache_pos, torch.Tensor):
+        rows = cache_pos + torch.arange(new.shape[1], device=cache.device)
+        cache.index_copy_(1, rows, new.to(cache.dtype))
+        return
     lo = max(cache_pos, start)
     hi = min(cache_pos + new.shape[1], start + cache.shape[1])
     if lo < hi:
@@ -423,7 +430,10 @@ def attention(params, x, spec: AttentionSpec, positions,
     - cross attention: cross_kv = (k, v) [B, Se, Hkv, hd] from the encoder
       states (or this rank's kv heads of them); every query sees every
       encoder position.
-    `cache_pos` is a Python int.  The cache dict {"k", "v"} of
+    `cache_pos` is a Python int or, without a mesh, a one-element int32
+    tensor on the device (the decode step's position, `stack._decode_step`):
+    the cache row and the decode kernel's length are then computed on the
+    device.  The cache dict {"k", "v"} of
     [B, S_max, Hkv, hd] tensors (under a mesh: DTensors, whose local
     slices are written) is written in place and returned.  The dispatch
     order is the reference's.

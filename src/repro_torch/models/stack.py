@@ -54,6 +54,8 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import tree as tree_mod
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import api, layers, mamba as mamba_mod, moe as moe_mod
 from repro_torch.models.api import ModelConfig
 from repro_torch.obs import spans
@@ -851,27 +853,159 @@ def build_prefill_fn(cfg: ModelConfig, max_len: int, mesh=None,
     return prefill
 
 
+def _decode_step(params, cfg: ModelConfig, cache, tokens, pos, par=None):
+    """One decode step at position `pos`: (next_tok, logits).  `pos` is an
+    int, or on one device a one-element int32 tensor on the tokens'
+    device: the positions, whisper's decoder position, the cache row
+    written and the decode kernel's length are then derived from it on
+    the device, so a captured step reads no Python value of it."""
+    s = tokens.shape[1]
+    h = embed_tokens(params, cfg, tokens, par)
+    positions = pos + torch.arange(s, device=tokens.device)
+    if cfg.family == "encdec":
+        dec_pos = _top(params, "dec_pos", par)
+        rows = (dec_pos.index_select(0, positions)
+                if isinstance(pos, torch.Tensor) else dec_pos[pos:pos + s])
+        h = h + rows.to(cfg.compute_dtype)
+    h, cache, _ = run_stack(params["blocks"], cfg, h, positions,
+                            cache=cache, cache_pos=pos, par=par)
+    h = _norm(_top(params, "final", par), "lnf", h, cfg)
+    logits = whole_vocab(unembed(params, cfg, h, par), cfg, par)[:, -1]
+    return logits.argmax(dim=-1).to(tokens.dtype), logits
+
+
+# the kernel wrappers' launch counters, which a replayed graph does not
+# advance itself
+_LAUNCH_COUNTERS = (da_ops.decode_attention, ssd_ops.ssd)
+# the shapes an eager decode step has run on in this process: a step of
+# these shapes is captured without another warm-up
+_WARM: set = set()
+# a device's capture stream (cuBLAS keeps a workspace for each stream it
+# has run on) and its latest graph, whose memory the next capture shares
+_CAPTURE_STREAMS: dict = {}
+_LATEST: dict = {}
+
+
+def _layout(tree) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for t in tree_mod.leaves(tree))
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: Any
+    tokens: torch.Tensor        # the inputs, set before each replay
+    pos: torch.Tensor
+    next_tok: torch.Tensor      # the outputs, cloned after each replay
+    logits: torch.Tensor
+    launched: tuple             # (counter, launches a replay makes)
+
+
+def _capture(cfg: ModelConfig, params, cache, tokens) -> _Graph:
+    """The decode step on `params`, `cache` and a copy of `tokens`,
+    captured on the device's capture stream into the memory pool of the
+    device's latest graph (the graphs of successive calls replay one at a
+    time on one stream, and each copies its outputs out before the next
+    runs).  Spans are paused (nothing recorded there runs until a
+    replay), and the launch counters are left as they were."""
+    dev = tokens.device
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    latest = _LATEST.get(dev)
+    graph = torch.cuda.CUDAGraph()
+    static = tokens.clone()
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = [c.launches for c in _LAUNCH_COUNTERS]
+    with spans.paused(), torch.cuda.stream(_CAPTURE_STREAMS[dev]):
+        graph.capture_begin(None if latest is None else latest.graph.pool(),
+                            capture_error_mode="thread_local")
+        try:
+            out = _decode_step(params, cfg, cache, static, pos)
+        finally:
+            graph.capture_end()
+    launched = tuple((c, c.launches - n) for c, n in
+                     zip(_LAUNCH_COUNTERS, before) if c.launches > n)
+    for c, n in zip(_LAUNCH_COUNTERS, before):
+        c.launches = n          # captured, not launched
+    spans.count("serve.decode_graph.captures", 1)
+    _LATEST[dev] = _Graph(graph, static, pos, *out, launched)
+    return _LATEST[dev]
+
+
+def release_decode_graphs() -> None:
+    """Forget the shapes warmed up and drop each device's latest graph
+    (and the memory it holds)."""
+    _WARM.clear()
+    _LATEST.clear()
+
+
+class _DecodeGraph:
+    """The single-device decode step, `build_decode_fn`'s without a mesh.
+
+    The step reads its position from a one-element int32 tensor on the
+    tokens' device, set by one `fill_` a call.  On the CPU it runs eager
+    on it.  On a CUDA device the whole step is captured in one CUDA graph
+    and replayed.  The graph serves one input layout: the config, the
+    tokens' shape and the data pointers, shapes and strides of the params
+    and of the cache; a call on another layout captures again.  The first
+    step of shapes the process has not run yet runs eager (the warm-up);
+    any other step of a new layout is captured, and it and every later
+    step of that layout are replays.  A replay copies the tokens and the
+    position into the graph's inputs and returns clones of its outputs,
+    so a later call overwrites nothing the caller holds; the cache is
+    written in place, as the eager step writes it.  After each replay the
+    kernel wrappers' launch counters advance by the launches the graph
+    holds."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.pos = None
+        self.key = self.graph = None
+
+    def __call__(self, params, cache, tokens, pos: int):
+        dev = tokens.device
+        if dev.type == "cuda":
+            layout = (_layout(params), _layout(cache))
+            key = (self.cfg, tuple(tokens.shape), tokens.dtype, dev, layout)
+            if key != self.key:
+                shapes = (key[:4], tuple(tuple(t[1:] for t in part)
+                                         for part in layout))
+                if shapes in _WARM:
+                    self.graph = _capture(self.cfg, params, cache, tokens)
+                    self.key = key
+                else:
+                    _WARM.add(shapes)   # this eager step is the warm-up
+            if key == self.key:
+                g = self.graph
+                g.tokens.copy_(tokens)
+                g.pos.fill_(pos)
+                g.graph.replay()
+                for counter, n in g.launched:
+                    counter.launches += n
+                spans.count("serve.decode_graph.replays", 1)
+                return cache, g.next_tok.clone(), g.logits.clone()
+        if self.pos is None or self.pos.device != dev:
+            self.pos = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.pos.fill_(pos)
+        next_tok, logits = _decode_step(params, self.cfg, cache, tokens,
+                                        self.pos)
+        return cache, next_tok, logits
+
+
 def build_decode_fn(cfg: ModelConfig, mesh=None, batch_axes=("data",)):
     """decode(params, cache, tokens [B,1], pos: int) -> (cache, next_tok,
-    logits).  The cache is updated in place and returned; under a mesh the
-    tokens, next_tok and logits are DTensors sharded over the batch."""
+    logits).  The cache is updated in place and returned; next_tok and
+    logits are the caller's.  Without a mesh the step reads its position
+    from the device and, on a CUDA device, is replayed from a CUDA graph
+    (`_DecodeGraph`); under a mesh it runs eager, and the tokens, next_tok
+    and logits are DTensors sharded over the batch."""
+    if mesh is None:
+        return _DecodeGraph(cfg)
+
     def decode(params, cache, tokens, pos: int):
         par = parallel(cfg, mesh, batch_axes)
-        if par is not None:
-            tokens = partition.keep_batch(tokens, batch_axes)
-        s = tokens.shape[1]
-        h = embed_tokens(params, cfg, tokens, par)
-        if cfg.family == "encdec":
-            h = h + _top(params, "dec_pos", par)[pos:pos + s].to(
-                cfg.compute_dtype)
-        positions = pos + torch.arange(s, device=tokens.device)
-        h, cache, _ = run_stack(params["blocks"], cfg, h, positions,
-                                cache=cache, cache_pos=pos, par=par)
-        h = _norm(_top(params, "final", par), "lnf", h, cfg)
-        logits = whole_vocab(unembed(params, cfg, h, par), cfg, par)[:, -1]
-        next_tok = logits.argmax(dim=-1).to(tokens.dtype)
-        if par is not None:
-            next_tok = partition.batch_dtensor(next_tok, mesh, batch_axes)
-            logits = partition.batch_dtensor(logits, mesh, batch_axes)
-        return cache, next_tok, logits
+        tokens = partition.keep_batch(tokens, batch_axes)
+        next_tok, logits = _decode_step(params, cfg, cache, tokens, pos, par)
+        return (cache, partition.batch_dtensor(next_tok, mesh, batch_axes),
+                partition.batch_dtensor(logits, mesh, batch_axes))
     return decode

@@ -49,6 +49,9 @@ it (the kept tensors stay alive until then).  Both are kept per phase
 (`"prefill"` or `"decode"`, from the enclosing `serve.prefill` /
 `serve.decode_step` span; `"other"` outside them).
 
+`paused()` stops recording for a block (a CUDA graph's capture, whose
+work runs only at its replays).
+
 One recorder at a time, driven from one thread (the served path's).
 """
 from __future__ import annotations
@@ -152,6 +155,19 @@ def reserve(device: torch.device, n: int) -> None:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record(stream)
             _POOL.append(ev)
+
+
+@contextlib.contextmanager
+def paused():
+    """No span and no count inside the block, while a recorder is active
+    around it: a CUDA graph's capture, whose events could not be timed
+    and whose work runs only when the graph is replayed."""
+    global _REC
+    rec, _REC = _REC, None
+    try:
+        yield
+    finally:
+        _REC = rec
 
 
 def activate(device: bool = True, max_events: int = 1 << 18) -> None:

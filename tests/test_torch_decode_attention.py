@@ -142,3 +142,64 @@ def test_decode_kernel_input_checks_accept_the_cache_in_place():
     with pytest.raises(ValueError, match="contiguous"):
         ops._check_cuda_inputs(q.transpose(1, 2).contiguous()
                                .transpose(1, 2), k, k, 1040)
+
+
+@pytest.mark.parametrize("length", [1, 17, 40, 64])
+def test_decode_attention_takes_a_device_length(length):
+    """A one-element int32 length (a decode step's position on the device)
+    gives what the int gives; on the CPU the plain version reads it."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 64, 8, 2, 32, seed=5))
+    got = ops.decode_attention(q, k, v, torch.tensor([length],
+                                                     dtype=torch.int32),
+                               scale=0.25)
+    assert torch.equal(got, ops.decode_attention(q, k, v, length,
+                                                 scale=0.25))
+
+
+@pytest.mark.parametrize("length,match", [
+    (torch.tensor([8], dtype=torch.int64), "one int32"),
+    (torch.tensor([8, 8], dtype=torch.int32), "one int32"),
+])
+def test_decode_kernel_input_checks_on_a_device_length(length, match):
+    """A device length is one int32 on q's device; its range is the
+    kernel's to clamp, so a value past the cache passes the host check."""
+    q = torch.zeros(1, 4, 32)
+    k = torch.zeros(1, 8, 2, 32)
+    ops._check_cuda_inputs(q, k, k, torch.tensor([9], dtype=torch.int32))
+    with pytest.raises(ValueError, match=match):
+        ops._check_cuda_inputs(q, k, k, length)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,hq,hd", [(2, 2, 16, 128), (16, 4, 32, 128),
+                                         (1, 8, 8, 96)])
+def test_card_device_length_matches_int_length(b, hkv, hq, hd, dtype):
+    """On the card the kernel reading its length through a pointer gives
+    the int form's output bit for bit at every length from 1 to S (each
+    split boundary among them), and clamps a device length to [1, S]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    s = 72
+    gen = torch.Generator(device=dev).manual_seed(b * hq)
+    q = torch.randn((b, hq, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, hkv, hd), generator=gen, device=dev)
+            .to(dtype) for _ in range(2))
+    # 1..S holds every length at which a CTA's share of rows changes
+    assert 1 < ops.split_count(b, hkv, ops._sm_count(0)) <= s // 8
+    box = torch.zeros(1, dtype=torch.int32, device=dev)
+    for length in range(1, s + 1):
+        box.fill_(length)
+        got = ops.decode_attention(q, k, v, box, scale=hd ** -0.5)
+        want = ops.decode_attention(q, k, v, length, scale=hd ** -0.5)
+        assert torch.equal(got, want), length
+        plain = ops.decode_attention_plain(q, k, v, length, scale=hd ** -0.5)
+        torch.testing.assert_close(got.float(), plain.float(),
+                                   **({"atol": 2e-5, "rtol": 2e-5}
+                                      if dtype == torch.float32
+                                      else {"atol": 2e-2, "rtol": 2e-2}))
+    for outside, inside in ((0, 1), (-3, 1), (s + 5, s)):
+        box.fill_(outside)
+        assert torch.equal(ops.decode_attention(q, k, v, box, scale=0.1),
+                           ops.decode_attention(q, k, v, inside, scale=0.1))

@@ -366,6 +366,9 @@ def test_card_spans_match_the_profiler_and_add_no_synchronise(
     try:
         off = generate(cfg, params, prompt, new)
         n_off = len(syncs)
+        # the recorded call's first decode step runs eager (its shapes
+        # forgotten), the rest are replays of the step's CUDA graph
+        stack.release_decode_graphs()
         with spans.recorder(device=True) as rec:
             on = generate(cfg, params, prompt, new)
     finally:
@@ -375,6 +378,13 @@ def test_card_spans_match_the_profiler_and_add_no_synchronise(
     assert all("d0" in r for r in rec["spans"] if r["name"].startswith(
         ("serve.prefill", "serve.decode_step", "layer.")))
     assert rec["counters"]["decode"]["moe.experts_hit"] > 0
+    # a replay counts nothing inside the graph: the decode phase's device
+    # counters come from the eager step alone
+    decode = rec["counters"]["decode"]
+    assert decode["serve.decode_graph.captures"] == 1
+    assert decode["serve.decode_graph.replays"] == new - 2
+    assert {r["step"] for r in rec["spans"]
+            if r["name"].startswith("moe.")} == {-1, 0}
     monkeypatch.setattr(torch.cuda, "synchronize", real_sync)
 
     # under the profiler: each decode step starts with a spin kernel
@@ -413,7 +423,12 @@ def test_card_spans_match_the_profiler_and_add_no_synchronise(
     launched = {e["args"]["correlation"]: e["ts"] for e in xs
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
-    device = [e for e in xs if e.get("cat") in DEVICE_CATS]
+    # the served stream's records: the decode step's CUDA graph is
+    # captured on a stream of its own, where the capture's prologue runs
+    # two fills of the RNG's state that are no step's work
+    served = {e["args"].get("stream") for e in xs if "spin" in e["name"]}
+    device = [e for e in xs if e.get("cat") in DEVICE_CATS
+              and e["args"].get("stream") in served]
     steps = [(a, r) for a, r in zip(anns, recs)
              if r["name"] == "serve.decode_step" and r["step"] > 0]
     assert len(steps) == new - 2
