@@ -30,7 +30,11 @@ the final `{"ok": true, ...}` line from printing:
      its init's decay and step ranges; MHA at whisper's 20 heads of 64
      and phi-3-vision's 32 of 96: decode at lengths 1, 7, 131, 1040 and
      1056 and B=1 (hd=96), flash at S=1024, and at hd=96 also S = 1, 7,
-     1000, 1040, B=1 and inputs x3 against fp64; the bf16 flash kernel
+     1000, 1040, B=1 and inputs x3 against fp64; decode at nemotron-h's
+     grouping (32 q heads on 2 kv heads: two CTAs of 8 a kv head) in a
+     4112-row cache at lengths 1, 131, 2305, 4097 and 4112 and B=1, and
+     the SSD at its shape (64 heads, B and C in 8 groups of d_state 128)
+     at L=1024 and 4096 and at its init's ranges; the bf16 flash kernel
      (wgmma) at every head dim (16, 32, 64, 96, 128) at lengths ragged
      against its 64-row tiles (77, 200, 1000; GQA and MHA), on q/k/v cut
      from one fused projection (strided views), and with inputs x3 against
@@ -67,7 +71,8 @@ the final `{"ok": true, ...}` line from printing:
      passes, 1.5x the FLOP), prefill and decode of both models, the
      llama3.2-3b forward on the flash kernel and with plain attention, and
      a torch.profiler breakdown;
-  8. the FOS runtime on the card (run after phase 6; then 9-12 and 7):
+  8. the FOS runtime on the card (run after phase 6; then 9, 10, 17, 11, 12
+     and 7):
      (a) `serve_daemon` as the reference's (mandelbrot and sobel tenants on
      one slot and its stream): 14 chunks, every output equal to a direct
      `run_placement` on the card, the mandelbrot counts within 1% of
@@ -110,6 +115,14 @@ the final `{"ok": true, ...}` line from printing:
      naming router, dispatch, experts and combine).  Each frees its params
      before the next phase; every phase prints its wall time and
      max_memory_allocated.
+ 17. nemotron-3-nano-30b-a3b cut to its first 21 blocks (MEMEM*E three
+     times: 9 Mamba2, 9 MoE with the sigmoid router, relu² experts and
+     the shared expert, 3 attention at 16 q heads a kv head; 12.8 B
+     params, 51.2 GB in fp32) at full width, run after 10: as phases 9
+     and 10, with exactly 3 x 31 = 93 decode launches (the g=16 instance)
+     and 9 SSD launches (8 groups) in the served run, 3 flash and 9 SSD
+     in the forward, and routes pinned at ties of the biased score (gap
+     < SIGMOID_TIE_GAP); its stage profile names the shared expert.
  11. whisper-large-v3 at full width and depth (32 encoder and 32 decoder
      layers, 1.607 B params, 6.43 GB in fp32; 1536 stub frames), and
  12. phi-3-vision-4.2b at full width and depth (32 layers, 3.822 B params,
@@ -200,15 +213,17 @@ the final `{"ok": true, ...}` line from printing:
      and `elastic_train --m100` (~100M params, B=4, S=256): steps/s,
      peak GB, restarts and switches.  Their launches are in the
      `kernels` line (`examples_launches`).
-Each of phases 3-6 and 8-16 sets every launch count to 0 just before it
+Each of phases 3-6 and 8-17 sets every launch count to 0 just before it
 drives a path and reads the counts just after.  Phase 7 runs last, in a
 fresh process (`python3 chip_smoke.py --times DIR`, the main paths'
 launch counts passed in DIR): torch.profiler drops kernel records in a
 process, more the longer it has run (`profiler_census` counts them after
 every phase), and phase 7's breakdowns are read from it.  Phase 7 also times the decode kernel at jamba's,
-qwen3-moe's, whisper's and phi-3-vision's heads, the flash kernel at
-their forward shapes (and in bf16 at the lm-forward module's, B=8,
-S=64) and the SSD kernel at jamba's shape.  Then the `kernels` JSON
+qwen3-moe's, whisper's and phi-3-vision's heads and at nemotron-h's in
+the nemotronh.prefill cell's cache (4112 rows, 2305 and 4097 valid), the
+flash kernel at their forward shapes (and in bf16 at the lm-forward
+module's, B=8, S=64) and the SSD kernel at jamba's and nemotron-h's
+shapes.  Then the `kernels` JSON
 line, the card line and the final line.
 
 It imports nothing of jax or of the reference package `repro`.
@@ -257,12 +272,15 @@ DEVICE = "cuda"
 LLAMA, MAMBA = "llama3.2-3b", "mamba2-780m"
 JAMBA, QWEN_MOE = "jamba-v0.1-52b", "qwen3-moe-30b-a3b"
 WHISPER, PHI3V = "whisper-large-v3", "phi-3-vision-4.2b"
+NEMOTRON = "nemotron-3-nano-30b-a3b"
 LAYERS = {LLAMA: 28, MAMBA: 48, WHISPER: 32, PHI3V: 32}
-# full width in fp32 does not fit one 80 GB card, so these two are cut in
-# depth, never in width: jamba to one super-block of 8 sub-layers (13.27 B
-# params, every sub-layer kind of its plan), qwen3-moe to 16 of its 48
-# layers (10.59 B params)
-DEPTH_CUT = {JAMBA: 8, QWEN_MOE: 16}
+# full width in fp32 does not fit one 80 GB card, so these three are cut
+# in depth, never in width: jamba to one super-block of 8 sub-layers
+# (13.27 B params, every sub-layer kind of its plan), qwen3-moe to 16 of
+# its 48 layers (10.59 B params), nemotron-h to its first 21 blocks
+# (MEMEM*E three times: 9 Mamba2, 9 MoE, 3 attention; 12.8 B params), the
+# depth the benchmark's nemotronh.prefill cell serves
+DEPTH_CUT = {JAMBA: 8, QWEN_MOE: 16, NEMOTRON: 21}
 BATCH, PROMPT, NEW = 4, 1024, 32
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -290,6 +308,13 @@ DECODE_CASES = [
     (4, 1056, 32, 32, 96, 1), (4, 1056, 32, 32, 96, 7),
     (4, 1056, 32, 32, 96, 131), (4, 1056, 32, 32, 96, 1040),
     (4, 1056, 32, 32, 96, 1056), (1, 1056, 32, 32, 96, 5),
+    # nemotron-h's grouping (32 q heads on 2 kv heads: g=16, two CTAs of 8
+    # a kv head) at the nemotronh.prefill cell's cache (prompts to 4096, 16
+    # new tokens): lengths that leave splits empty and ragged, a mid-length
+    # and a full prompt, the full cache, and B=1
+    (4, 4112, 32, 2, 128, 1), (4, 4112, 32, 2, 128, 131),
+    (4, 4112, 32, 2, 128, 2305), (4, 4112, 32, 2, 128, 4097),
+    (4, 4112, 32, 2, 128, 4112), (1, 4112, 32, 2, 128, 1040),
 ]
 # (b, sq, sk, hq, hkv, hd): the reference's FLASH_CASES, then the
 # llama3.2-3b forward shape; then, at its head counts, S=1 and S=7 (fewer
@@ -319,30 +344,37 @@ PEAKY_CASES = [(24, 8, 128), (32, 32, 96)]
 # (hq, hkv, hd) of q/k/v cut from one fused projection (strided views)
 FLASH_BF16_RAGGED = [(2, 200, 8, 2), (1, 77, 4, 4), (3, 1000, 6, 3)]
 FLASH_BF16_FUSED = [(24, 8, 128), (32, 32, 96), (4, 1, 64)]
-# (b, L, h, p, g, n, chunk): the full-width mamba2-780m prefill shape, and
-# jamba's (128 heads, d_state 16)
+# (b, L, h, p, g, n, chunk): the full-width mamba2-780m prefill shape,
+# jamba's (128 heads, d_state 16) and nemotron-h's (64 heads, B and C in 8
+# groups of d_state 128)
 SSD_FULL = (4, 1024, 48, 64, 1, 128, 128)
 SSD_JAMBA = (4, 1024, 128, 64, 1, 16, 128)
+SSD_NEMOTRON = (4, 1024, 64, 64, 8, 128, 128)
 # the reference's SSD_CASES, the reduced mamba2-780m shape, then the
-# full-width prefill shape, a ragged L=1000 and L=4096 (32 chunks)
+# full-width prefill shape, a ragged L=1000 and L=4096 (32 chunks); then
+# nemotron-h's at L=1024 and at the nemotronh.prefill cell's longest
+# prompt, L=4096
 SSD_CASES = [
     (1, 256, 2, 64, 1, 64, 64), (2, 128, 4, 32, 2, 16, 32),
     (1, 512, 2, 64, 1, 128, 128), (1, 128, 2, 64, 1, 16, 64),
     (2, 20, 8, 16, 1, 16, 16),
     SSD_FULL, (4, 1000, 48, 64, 1, 128, 128), (4, 4096, 48, 64, 1, 128, 128),
+    SSD_NEMOTRON, (4, 4096, 64, 64, 8, 128, 128),
 ]
 # the kernel instantiations the main paths run, as ptxas names them
-# (mangled): decode at hd=128, g<=4 (llama, jamba) and g<=8 (qwen3-moe, fp32
-# and bf16), and g=1 at hd=64 (whisper) and hd=96 (phi-3-vision); SSD at
-# P=64, N=128 (mamba2-780m) and N=16 (jamba), with their C.B^T kernels;
+# (mangled): decode at hd=128, g<=4 (llama, jamba), g<=8 (qwen3-moe, fp32
+# and bf16) and g=16 as two CTAs of 8 (nemotron-h, fp32), and g=1 at hd=64
+# (whisper) and hd=96 (phi-3-vision); SSD at P=64, N=128 (mamba2-780m,
+# nemotron-h) and N=16 (jamba), with their C.B^T kernels;
 # flash at hd=128, 64 and 96 in fp32 (mma.sync) and at hd=128 in bf16
 # (wgmma; the lm-forward module's)
 FLASH_MAIN = "flash_kernelIfLi128E"
 FLASH_BF16 = "flash_wgmma_kernelILi128E"
 DECODE_G1 = ("decode_kernelIfLi64ELi1E", "decode_kernelIfLi96ELi1E")
+DECODE_G16 = "decode_kernelIfLi128ELi8ELi2E"
 MAIN_PATH_INSTANCES = (
-    "decode_kernelIfLi128ELi4E", "decode_kernelIfLi128ELi8E",
-    "decode_kernelI13__nv_bfloat16Li128ELi8E", *DECODE_G1,
+    "decode_kernelIfLi128ELi4E", "decode_kernelIfLi128ELi8ELi1E",
+    "decode_kernelI13__nv_bfloat16Li128ELi8ELi1E", DECODE_G16, *DECODE_G1,
     "ssd_chunk_state_kernelIfLi64ELi128E",
     "ssd_chunk_scan_kernelIfLi64ELi128E", "ssd_cb_kernelIfLi128E",
     "ssd_chunk_state_kernelIfLi64ELi16E",
@@ -642,9 +674,10 @@ def phase_kernels(smoke: Smoke) -> None:
             torch.cuda.synchronize()
             _check_ssd(smoke, f"ssd_scan b={b} L={l} h={h} p={p} g={g} n={n} "
                        f"chunk={chunk} {dtype}", got, want, dtype)
-    # the full-width shapes (mamba2-780m's, jamba's) at the model's decay
-    # and step ranges, where the state is carried across whole chunks
-    for b, l, h, p, g, n, chunk in (SSD_FULL, SSD_JAMBA):
+    # the full-width shapes (mamba2-780m's, jamba's, nemotron-h's) at the
+    # model's decay and step ranges, where the state is carried across
+    # whole chunks
+    for b, l, h, p, g, n, chunk in (SSD_FULL, SSD_JAMBA, SSD_NEMOTRON):
         for dtype in (torch.float32, torch.bfloat16):
             args = _ssd_model_inputs(gen, b, l, h, p, g, n, dtype)
             got = ssd.ssd(*args, chunk=chunk, impl="pallas")
@@ -748,11 +781,23 @@ def _full_cfg(arch, impl):
                               kv_dtype=torch.float32, attn_impl=impl,
                               ssd_impl=impl)
     if arch in DEPTH_CUT:
-        cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUT[arch])
+        cfg = _cut(cfg, DEPTH_CUT[arch])
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, impl="ep" if impl == "pallas" else "dense"))
     return cfg
+
+
+def _cut(cfg, n_layers):
+    """cfg cut in depth to n_layers, its widths unchanged; a block pattern
+    to its first n_layers blocks, stacked by the shortest period that
+    repeats to them (nemotron-h's first 21: MEMEM*E three times)."""
+    pat = (cfg.layer_pattern * (cfg.n_layers // len(cfg.layer_pattern))
+           if cfg.layer_pattern else "")[:n_layers]
+    if pat:
+        pat = next(pat[:p] for p in range(1, n_layers + 1)
+                   if pat[:p] * (n_layers // p) == pat)
+    return dataclasses.replace(cfg, n_layers=n_layers, layer_pattern=pat)
 
 
 @contextlib.contextmanager
@@ -769,7 +814,7 @@ def _depth_cut(cuts=None):
         cfg = real(arch_id, reduced)
         if reduced or arch_id not in cuts:
             return cfg
-        return dataclasses.replace(cfg, n_layers=cuts[arch_id])
+        return _cut(cfg, cuts[arch_id])
     configs.get = get
     try:
         yield
@@ -880,6 +925,11 @@ def phase_forward(smoke: Smoke, arch: str) -> None:
 # hidden state, ~1e-7 in a router probability, and a routing flip there
 # moves that token's hidden state by ~1e-2, far past the 1e-3 checks.
 TIE_GAP = 1e-6
+# The same for a sigmoid router's biased score (nemotron-h): a score's
+# slope in its logit near the top-k boundary, sigmoid' ~ 0.2, is about ten
+# times a softmax probability's there (p ~ 0.01-0.05 over 128 experts),
+# so the same hidden-state noise moves it ten times as far.
+SIGMOID_TIE_GAP = 1e-5
 
 
 @contextlib.contextmanager
@@ -900,21 +950,23 @@ def _deterministic():
 
 
 class _Routes:
-    """Records each MoE router call's top-k experts, the top k+1
-    probabilities (for the gap at the top-k boundary), and which tokens'
-    choices were pinned, while a run is inside `record(name)`.  It wraps
+    """Records each MoE router call's top-k experts, the top k+1 scores
+    the choice is made on (the probabilities; a sigmoid router's biased
+    scores), for the gap at the top-k boundary, and which tokens' choices
+    were pinned, while a run is inside `record(name)`.  It wraps
     `moe.router_probs`, which both MoE routes call, and has every decode
     step run eager (on a Python position) meanwhile.
 
     A plain rerun records with `follow` set to the run it is held to, and
     is teacher-forced on that run's routes where they tie, as it is on the
     served tokens: where its own top-k set differs from the followed run's
-    at call j and its own gap is below TIE_GAP, it takes the followed
-    run's experts (and their probabilities, renormalised).  A difference
-    at a larger gap is left alone, and `differ` counts it."""
+    at call j and its own gap is below `tie_gap`, it takes the followed
+    run's experts (and their weights, renormalised as the router's are).
+    A difference at a larger gap is left alone, and `differ` counts it."""
 
-    def __init__(self):
+    def __init__(self, tie_gap=TIE_GAP):
         self.calls: dict[str, list] = {}
+        self.tie_gap = tie_gap
 
     @contextlib.contextmanager
     def record(self, name, follow=None):
@@ -924,8 +976,15 @@ class _Routes:
         def router_probs(params, x, spec):
             top_p, top_i, aux = real(params, x, spec)
             k = spec.top_k
-            probs = torch.softmax(x.float() @ params["w_router"].float(), -1)
-            top = torch.sort(probs, dim=-1, descending=True,
+            logits = x.float() @ params["w_router"].float()
+            if spec.router == "sigmoid_bias":
+                weight = torch.sigmoid(logits)
+                score = weight + params["router_bias"].float()
+                scale = spec.routed_scale
+            else:
+                weight = score = torch.softmax(logits, -1)
+                scale = 1.0
+            top = torch.sort(score, dim=-1, descending=True,
                              stable=True).values[:, :k + 1]
             pinned = torch.zeros(top_i.shape[0], dtype=torch.bool,
                                  device=top_i.device)
@@ -933,11 +992,12 @@ class _Routes:
             if follow is not None:
                 ref = self.calls[follow][len(log)][0]
                 same = (top_i[:, :, None] == ref[:, None, :]).any(-1).all(-1)
-                pinned = ~same & (top[:, k - 1] - top[:, k] < TIE_GAP)
+                pinned = ~same & (top[:, k - 1] - top[:, k] < self.tie_gap)
                 top_i = torch.where(pinned[:, None], ref, top_i)
-                p = probs.gather(1, top_i)
+                p = weight.gather(1, top_i)
                 top_p = torch.where(pinned[:, None],
-                                    p / p.sum(-1, keepdim=True), top_p)
+                                    p / p.sum(-1, keepdim=True) * scale,
+                                    top_p)
             log.append((own, top, pinned))
             return top_p, top_i, aux
         moe.router_probs = router_probs
@@ -997,12 +1057,13 @@ def _check_routes(smoke, what, routes, a, b, n_moe, n_calls) -> dict:
     print(f"   {what}: (token, expert) routes of the kernel path the plain "
           f"path chose otherwise, per MoE sub-layer: {diff['per_sublayer']} "
           f"of {diff['routes_per_sublayer']}; pinned at ties (gap < "
-          f"{TIE_GAP:g}): {diff['pinned_per_sublayer']}; first: "
+          f"{routes.tie_gap:g}): {diff['pinned_per_sublayer']}; first: "
           f"{diff['first']}")
     smoke.check(f"{what}: the plain rerun routed the same calls",
                 diff["calls"][0] == diff["calls"][1] == n_calls,
                 f"{diff['calls']}")
-    smoke.check(f"{what}: routes differ only at ties (gap < {TIE_GAP:g})",
+    smoke.check(f"{what}: routes differ only at ties (gap < "
+                f"{routes.tie_gap:g})",
                 diff["not_ties"] == 0,
                 f"{diff['not_ties']} routes differ at a larger gap")
     return diff
@@ -1015,7 +1076,7 @@ def _sublayer_counts(cfg) -> dict:
 
 
 def phase_moe_model(smoke: Smoke, arch: str) -> None:
-    """Phases 9 and 10: a DEPTH_CUT model at full width in fp32.  Serve it
+    """Phases 9, 10 and 17: a DEPTH_CUT model at full width in fp32.  Serve it
     (B=4, a 1024-token prompt, 32 new tokens, greedy, the kernel path with
     the gather MoE route, the decode step's CUDA graph), serve it again
     with every decode step eager to record its routes, hold the two to
@@ -1037,7 +1098,8 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
     print(f"   {arch} cut to {cfg_k.n_layers} layers: {n}, "
           f"{res['params'] / 1e9:.3f} B params "
           f"({4 * res['params'] / 1e9:.2f} GB in fp32)")
-    routes = _Routes()
+    routes = _Routes(SIGMOID_TIE_GAP if cfg_k.moe.router == "sigmoid_bias"
+                     else TIE_GAP)
 
     # serve, as phases 3 and 5 do (the decode step's CUDA graph), then
     # again with the decode steps eager, recording their routes: a replay
@@ -1129,8 +1191,8 @@ def _moe_layer_alone(smoke, arch, cfg, params, flush) -> dict:
     tokens (the prefill) and T = 4 (a decode step): the gather route and
     the one-hot oracle choose the same experts, drop the same (token, k)
     pairs, and agree within 2e-5 (aux within 1e-6); with a zero router
-    every token takes experts 0 .. k-1.  Times the gather route and the
-    oracle at T = 4096."""
+    every token takes experts 0 .. k-1 (a sigmoid router's bias zeroed
+    too).  Times the gather route and the oracle at T = 4096."""
     import dataclasses
     from repro_torch.models import layers, moe, stack
     i = next(i for i, (_, ffn) in enumerate(cfg.layer_plan()[1])
@@ -1182,7 +1244,8 @@ def _moe_layer_alone(smoke, arch, cfg, params, flush) -> dict:
                 out["profile_gather"] = _moe_stage_profile(
                     lambda: moe.moe_ep(p, x, spec))
             del y_ep, y_d
-        zero = dict(p, w_router=torch.zeros_like(p["w_router"]))
+        zero = {k: torch.zeros_like(v) if k in ("w_router", "router_bias")
+                else v for k, v in p.items()}
         _, ties, _ = moe.router_probs(zero, xt, spec)
         smoke.check(f"{arch} MoE router: equal probabilities take experts "
                     f"0 .. k-1 on the card",
@@ -1195,12 +1258,15 @@ def _moe_layer_alone(smoke, arch, cfg, params, flush) -> dict:
 def _moe_stage_ranges():
     """torch.profiler ranges around the MoE layer's stages: router
     (`router_probs`), dispatch (`_sorted_dispatch`: the sort and the
-    gather), experts (`_expert_ffn`: three bmm) and the whole layer
-    (`moe_ep`; what the three leave is the weighting and `index_add_`)."""
+    gather), experts (`_expert_ffn`: the bmm), the whole routed layer
+    (`moe_ep`; what the three leave is the weighting and `index_add_`),
+    and the shared expert beside it (`_with_shared`: its `_expert_ffn`
+    counts as the shared expert's, not the experts')."""
     from repro_torch.models import moe
     names = {"router_probs": "moe.router",
              "_sorted_dispatch": "moe.dispatch",
-             "_expert_ffn": "moe.experts", "moe_ep": "moe.layer"}
+             "_expert_ffn": "moe.experts", "moe_ep": "moe.layer",
+             "_with_shared": "moe.shared"}
     real = {fn: getattr(moe, fn) for fn in names}
 
     def ranged(fn):
@@ -1227,9 +1293,16 @@ def _moe_stage_profile(fn) -> dict:
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    def in_shared(e):
+        while e.cpu_parent is not None:
+            e = e.cpu_parent
+            if e.name == "moe.shared":
+                return True
+        return False
     stage = {}
     for e in prof.events():
-        if e.name.startswith("moe.") and e.device_type.name == "CPU":
+        if e.name.startswith("moe.") and e.device_type.name == "CPU" \
+                and not in_shared(e):
             stage[e.name] = stage.get(e.name, 0.0) + e.device_time_total / 1e3
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type.name == "CUDA"
@@ -3240,12 +3313,19 @@ def phase_times(smoke: Smoke) -> None:
     with torch.inference_mode():
         # decode: a mid-run step of the serving path; nested, the same at
         # jamba's and qwen3-moe's groupings (g=4 on 8 kv heads, g=8 on 4)
-        # and at whisper's and phi-3-vision's MHA heads (hd 64 and 96)
+        # and at whisper's and phi-3-vision's MHA heads (hd 64 and 96),
+        # and nemotron-h's (g=16 on 2 kv heads) at the nemotronh.prefill
+        # cell's cache, filled to a mid-length and to a full prompt
         kernels.append(_decode_entry(smoke, gen, flush, hq, hkv, hd, LLAMA))
         for arch in (JAMBA, QWEN_MOE, WHISPER, PHI3V):
             c = _full_cfg(arch, "pallas")
             kernels[-1][arch] = _decode_entry(smoke, gen, flush, c.n_heads,
                                               c.n_kv_heads, c.head_dim, arch)
+        c = _full_cfg(NEMOTRON, "pallas")
+        for key, length in ((NEMOTRON, 2305), (f"{NEMOTRON} full", 4097)):
+            kernels[-1][key] = _decode_entry(
+                smoke, gen, flush, c.n_heads, c.n_kv_heads, c.head_dim,
+                NEMOTRON, s_cache=4112, length=length)
         # flash: the full-width cache-free forward's attention, in fp32 (the
         # main path) and in bf16 (nested in the fp32 entry; also at the
         # lm-forward module's shape), and in fp32 at jamba's, qwen3-moe's,
@@ -3261,9 +3341,10 @@ def phase_times(smoke: Smoke) -> None:
                 smoke, gen, flush, c.n_heads, c.n_kv_heads, c.head_dim,
                 c.head_dim ** -0.5, f32, arch)
         # ssd_scan: one layer of the full-width mamba2-780m prefill, and
-        # (nested) of jamba's
+        # (nested) of jamba's and of nemotron-h's (8 B/C groups)
         kernels.append(_ssd_entry(smoke, gen, flush, MAMBA))
-        kernels[-1][JAMBA] = _ssd_entry(smoke, gen, flush, JAMBA)
+        for arch in (JAMBA, NEMOTRON):
+            kernels[-1][arch] = _ssd_entry(smoke, gen, flush, arch)
         for entry in kernels:       # every main-path run that launched it
             entry["launches_by_path"] = {
                 path: counts[entry["name"]] for path, counts in
@@ -3274,13 +3355,13 @@ def phase_times(smoke: Smoke) -> None:
         _model_times(smoke, flush, arch)
 
 
-def _decode_entry(smoke, gen, flush, hq, hkv, hd, arch) -> dict:
-    """The decode kernel's `kernels`-line entry at a mid-run step of
-    serving `arch` (cache 1056 rows, 1040 valid), fp32."""
+def _decode_entry(smoke, gen, flush, hq, hkv, hd, arch,
+                  s_cache=PROMPT + NEW, length=PROMPT + NEW // 2) -> dict:
+    """The decode kernel's `kernels`-line entry at a step of serving `arch`
+    (by default mid-run: cache 1056 rows, 1040 valid), fp32."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as da
     f32, scale = torch.float32, hd ** -0.5
-    s_cache, length = PROMPT + NEW, PROMPT + NEW // 2
     q = _randn(gen, (BATCH, hq, hd), f32)
     k = _randn(gen, (BATCH, s_cache, hkv, hd), f32)
     v = _randn(gen, (BATCH, s_cache, hkv, hd), f32)
@@ -3647,6 +3728,8 @@ def main() -> int:
          lambda: phase_moe_model(smoke, JAMBA)),
         (f"10 {QWEN_MOE} cut to {DEPTH_CUT[QWEN_MOE]} layers at full width",
          lambda: phase_moe_model(smoke, QWEN_MOE)),
+        (f"17 {NEMOTRON} cut to {DEPTH_CUT[NEMOTRON]} layers at full width",
+         lambda: phase_moe_model(smoke, NEMOTRON)),
         (f"11 {WHISPER} at full width and depth",
          lambda: phase_encdec_vlm(smoke, WHISPER)),
         (f"12 {PHI3V} at full width and depth",

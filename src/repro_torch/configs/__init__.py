@@ -1,4 +1,5 @@
-"""Architecture config registry: the reference's ten architectures.
+"""Architecture config registry: the reference's ten architectures
+(`ARCH_IDS`), and those the port serves besides them (`PORT_ARCH_IDS`).
 
 Usage:
     from repro_torch import configs
@@ -22,6 +23,10 @@ ARCH_IDS = [
     "jamba-v0.1-52b",
 ]
 
+# every architecture the port serves: the reference's ten and those with a
+# plain reference of their own (`src/plain_ref/`) in their place
+PORT_ARCH_IDS = ARCH_IDS + ["nemotron-3-nano-30b-a3b"]
+
 _MODULES = {
     "granite-3-8b": "granite_3_8b",
     "yi-9b": "yi_9b",
@@ -33,11 +38,12 @@ _MODULES = {
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "whisper-large-v3": "whisper_large_v3",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "nemotron-3-nano-30b-a3b": "nemotron_3_nano_30b_a3b",
 }
 
 
 def get(arch_id: str, reduced: bool = False):
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {PORT_ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.REDUCED if reduced else mod.CONFIG

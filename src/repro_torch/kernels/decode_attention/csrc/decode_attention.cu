@@ -39,6 +39,13 @@
 //     kernel at 80 registers, so three CTAs fit on an SM and a whole
 //     cluster of 8 always finds room; a deeper unroll or a register
 //     prefetch of the next step measured slower on the H100;
+//   - g = 16 (nemotron-h: 32 q heads on 2 kv heads) would need twice the
+//     G = 8 instance's registers (already 140-142, one CTA an SM), so its
+//     q heads are split over QS = 2 CTAs of 8 each, a grid dimension
+//     beside the kv head (grid y = Hkv * QS): each CTA reads the kv
+//     head's rows for its 8 q heads, the pair's second read of a row
+//     mostly from L2.  QS is a template parameter, 1 for g <= 8, whose
+//     instances compute their indices exactly as before;
 //   - the splits are merged without another launch and without scratch in
 //     device memory: each CTA leaves its partial (m, l, acc) in its own
 //     shared memory, and after a cluster barrier every CTA of the cluster
@@ -59,11 +66,12 @@ constexpr int kWarps = 8;
 constexpr int kUnroll = 2;
 constexpr int kMaxSplits = 8;  // the portable cluster size
 
-// T: q/cache/out type.  HD: head dim.  G: a bound on g (registers are sized
-// by G, the loops are guarded by the runtime g; up to G = 4 the launch bound
-// keeps at least two CTAs on an SM).  Grid (splits, Hkv, B); the `splits`
-// CTAs along x form one cluster.
-template <typename T, int HD, int G>
+// T: q/cache/out type.  HD: head dim.  G: a bound on the q heads a CTA
+// holds, g / QS (registers are sized by G, the loops are guarded by the
+// runtime count; up to G = 4 the launch bound keeps at least two CTAs on an
+// SM).  QS: CTAs sharing a kv head's g q heads.  Grid (splits, Hkv * QS,
+// B); the `splits` CTAs along x form one cluster.
+template <typename T, int HD, int G, int QS>
 __global__ void __launch_bounds__(kWarps * 32, G <= 4 ? 2 : 1)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out, int hkv, int g,
@@ -82,7 +90,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.y / QS, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / LPK;          // which row of the warp step
   const int part = lane % LPK;         // which 16-byte slice of the row
@@ -90,6 +98,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int slice = busy ? part : 0;
   const int slot = warp * RPW + sub;
   const int hq = hkv * g;
+  // this CTA's q heads: [h0, h0 + g / QS), the kv head's share
+  const int h0 = kvh * g + (blockIdx.y % QS) * (g / QS);
+  g /= QS;
 
   // the valid prefix, read once and clamped to the cache's rows
   const int length = min(max(__ldg(length_ptr), 1), s_max);
@@ -104,7 +115,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     if (gi < g) {
-      const T* qp = q + ((int64_t)b * hq + kvh * g + gi) * HD + slice * VEC;
+      const T* qp = q + ((int64_t)b * hq + h0 + gi) * HD + slice * VEC;
       V::to_float(load16(qp), qf[gi]);
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
@@ -249,7 +260,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lsum += *cluster.map_shared_rank(&part_l[gi], r) * c;
       asum += *cluster.map_shared_rank(&part_acc[gi][d], r) * c;
     }
-    store(out + ((int64_t)b * hq + kvh * g + gi) * HD + d,
+    store(out + ((int64_t)b * hq + h0 + gi) * HD + d,
           asum / fmaxf(lsum, 1e-30f));
   }
   cluster.sync();  // no CTA leaves while a peer may still read its partial
@@ -265,10 +276,10 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int HD, int G>
+template <typename T, int HD, int G, int QS = 1>
 cudaError_t launch(const Args& a) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.splits, a.hkv, a.batch);
+  cfg.gridDim = dim3(a.splits, a.hkv * QS, a.batch);
   cfg.blockDim = dim3(kWarps * 32);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = a.stream;
@@ -280,7 +291,7 @@ cudaError_t launch(const Args& a) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_kernel<T, HD, G>, static_cast<const T*>(a.q),
+      &cfg, decode_kernel<T, HD, G, QS>, static_cast<const T*>(a.q),
       static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<T*>(a.out), a.hkv, a.g, a.length, a.s_max, a.scale,
       a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss, a.v_sh);
@@ -293,6 +304,7 @@ cudaError_t dispatch_g(const Args& a) {
   if (a.g <= 2) return launch<T, HD, 2>(a);
   if (a.g <= 4) return launch<T, HD, 4>(a);
   if (a.g <= 8) return launch<T, HD, 8>(a);
+  if (a.g == 16) return launch<T, HD, 8, 2>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -316,8 +328,8 @@ extern "C" {
 // on hd and the given element strides for b, s and h; `s_max` is S.
 // `length`: one int32 in device memory, the valid prefix, which the kernel
 // clamps to [1, S].  `splits` CTAs (one cluster, 1..8) share each (batch,
-// kv head).  Returns the CUDA error of the launch (0 on success); the
-// kernel runs on `stream`.
+// kv head, CTA of its q heads); g is 1..8, or 16 (two CTAs of 8).  Returns
+// the CUDA error of the launch (0 on success); the kernel runs on `stream`.
 int decode_attention(const void* q, const void* k, const void* v, void* out,
                      int dtype, int batch, int hkv, int g, int hd,
                      const void* length, int s_max, int splits, float scale,

@@ -6,7 +6,8 @@ Hopper kernel is `csrc/decode_attention.cu` (CUDA C++, sm_90a).  It is bound
 by device-memory bytes (each valid K/V row is read once for g query heads);
 its design note is at the top of the source.  Each (batch, kv head) is one
 thread-block cluster of `split_count(...)` CTAs, each streaming the rows
-`split_rows(...)` gives it, merged through distributed shared memory.
+`split_rows(...)` gives it, merged through distributed shared memory; at
+16 q heads a kv head, two such clusters, each of 8 of the q heads.
 
 `decode_attention` launches the kernel for CUDA tensors and runs
 `decode_attention_plain` only for CPU tensors.  The reference wrapper
@@ -29,17 +30,19 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128)
-MAX_GROUP = 8       # q heads per kv head held in one CTA's registers
+CTA_GROUP = 8       # q heads per kv head held in one CTA's registers
+MAX_GROUP = 16      # q heads per kv head: up to CTA_GROUP, or two CTAs'
 MAX_SPLITS = 8      # CTAs of one cluster: the portable cluster size
 CTAS_PER_SM = 2     # the split count aims at this many CTAs on each SM
 
 
-def split_count(batch: int, hkv: int, sms: int) -> int:
-    """CTAs (one cluster) that share the rows of each (batch, kv head): as
-    many as put about CTAS_PER_SM CTAs on every SM, at most MAX_SPLITS, and
-    1 once B*Hkv alone fills the card.  It depends on neither the length nor
-    the position, so the grid is the same at every decode step."""
-    pairs = batch * hkv
+def split_count(batch: int, hkv: int, sms: int, g: int = 1) -> int:
+    """CTAs (one cluster) that share the rows of each (batch, kv head, CTA
+    of its g q heads): as many as put about CTAS_PER_SM CTAs on every SM,
+    at most MAX_SPLITS, and 1 once those clusters alone fill the card.  It
+    depends on neither the length nor the position, so the grid is the
+    same at every decode step."""
+    pairs = batch * hkv * -(-g // CTA_GROUP)
     if pairs >= sms:
         return 1
     return min(MAX_SPLITS, -(-CTAS_PER_SM * sms // pairs))
@@ -88,9 +91,10 @@ def _check_cuda_inputs(q, k, v, length):
         raise ValueError(f"cache shapes {tuple(k.shape)}/{tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
     hkv = k.shape[2]
-    if hq % hkv or hq // hkv > MAX_GROUP:
+    if hq % hkv or (hq // hkv > CTA_GROUP and hq // hkv != MAX_GROUP):
         raise ValueError(f"q heads {hq} must be a multiple of kv heads "
-                         f"{hkv}, at most {MAX_GROUP} per kv head")
+                         f"{hkv}, at most {CTA_GROUP} per kv head or "
+                         f"{MAX_GROUP} (two CTAs of {CTA_GROUP})")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODE:
@@ -137,7 +141,7 @@ def decode_attention(q, k_cache, v_cache, length, *, scale: float):
     b, hq, hd = q.shape
     hkv = k.shape[2]
     out = torch.empty_like(q)
-    splits = split_count(b, hkv, _sm_count(q.device.index))
+    splits = split_count(b, hkv, _sm_count(q.device.index), hq // hkv)
     lib = _lib()
     rc = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -353,7 +353,8 @@ def serve_daemon(run: DaemonServeRun, log=print) -> dict:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b", choices=configs.ARCH_IDS)
+    ap.add_argument("--arch", default="llama3.2-3b",
+                    choices=configs.PORT_ARCH_IDS)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new-tokens", type=int, default=32)

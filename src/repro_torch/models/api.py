@@ -46,6 +46,13 @@ class MoEConfig:
     impl: str = "dense"     # "dense" | "ep"
     fsdp_experts: bool = False
     aux_loss_weight: float = 0.01
+    # "softmax": top-k of softmax(x W), weights renormalised; "sigmoid_bias":
+    # top-k of sigmoid(x W) + router_bias, weights the unbiased scores of
+    # the chosen, renormalised (nemotron-h, deepseek-v3)
+    router: str = "softmax"
+    routed_scale: float = 1.0       # the routed output's scale
+    expert_act: str = "swiglu"      # "swiglu" (w1, w3, w2) | "relu2" (w1, w2)
+    shared_d_ff: int = 0            # an always-on shared expert's width
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +63,13 @@ class SSMConfig:
     n_groups: int = 1
     conv_kernel: int = 4
     chunk: int = 128
+    n_heads: int = 0        # 0: expand * d_model / headdim
+
+
+# the sub-layer of a `layer_pattern` character: the blocks of nemotron-h's
+# `hybrid_override_pattern`, one mixer each (Mamba2, MoE, attention)
+PATTERN_LAYERS = {"M": ("mamba", "none"), "E": ("none", "moe"),
+                  "*": ("attn", "none")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,11 +89,16 @@ class ModelConfig:
     attn_bias: bool = False
     mlp_kind: str = "swiglu"
     norm_kind: str = "rms"          # rms | layer
+    norm_eps: float = 1e-6          # every RMSNorm's
+    use_rope: bool | None = None    # None: every family but encdec
     tie_embeddings: bool = False
     # family extensions
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     attn_every: int = 0             # hybrid: 1 attn layer per this many
+    # one character a layer (`PATTERN_LAYERS`), repeated n_layers / len
+    # times; "" for the family's plan
+    layer_pattern: str = ""
     n_enc_layers: int = 0           # encdec
     enc_seq: int = 1500             # stub audio frontend frames
     n_patches: int = 0              # vlm stub patches
@@ -116,7 +135,8 @@ class ModelConfig:
         return mamba_mod.MambaSpec(
             d_model=self.d_model, d_state=s.d_state, headdim=s.headdim,
             expand=s.expand, n_groups=s.n_groups, conv_kernel=s.conv_kernel,
-            chunk=s.chunk, ssd_impl=self.ssd_impl)
+            chunk=s.chunk, ssd_impl=self.ssd_impl, heads=s.n_heads,
+            norm_eps=self.norm_eps)
 
     @property
     def attn_spec(self) -> layers.AttentionSpec:
@@ -124,20 +144,29 @@ class ModelConfig:
             n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
             head_dim=self.head_dim, rope_theta=self.rope_theta,
             qk_norm=self.qk_norm, causal=True,
-            use_rope=(self.family != "encdec"), bias=self.attn_bias,
+            use_rope=(self.family != "encdec" if self.use_rope is None
+                      else self.use_rope), bias=self.attn_bias,
+            norm_eps=self.norm_eps,
             attn_chunk=self.attn_chunk, attn_unroll=self.attn_unroll)
 
     def layer_plan(self):
         """Returns (n_groups, per-group sub-layer plan).
 
-        Each sub-layer is (mixer, ffn) with mixer in {attn, mamba} and ffn
-        in {dense, moe, none}.  Homogeneous families repeat a one-sub-layer
-        plan n_layers times (the VLM takes the dense plan; the
-        encoder-decoder's is its decoder's); the MoE family a plan of
-        `moe.every` sub-layers; the hybrid (jamba) super-blocks of
-        `attn_every` sub-layers, attention in the middle one, MoE on the
-        odd ones.
+        Each sub-layer is (mixer, ffn) with mixer in {attn, mamba, none} and
+        ffn in {dense, moe, none}.  A `layer_pattern` is the plan, one
+        sub-layer a character (`PATTERN_LAYERS`: nemotron-h's single-mixer
+        blocks), repeated n_layers / len times.  Otherwise homogeneous
+        families repeat a one-sub-layer plan n_layers times (the VLM takes
+        the dense plan; the encoder-decoder's is its decoder's); the MoE
+        family a plan of `moe.every` sub-layers; the hybrid (jamba)
+        super-blocks of `attn_every` sub-layers, attention in the middle
+        one, MoE on the odd ones.
         """
+        if self.layer_pattern:
+            period = len(self.layer_pattern)
+            assert self.n_layers % period == 0, (self.n_layers, period)
+            return (self.n_layers // period,
+                    [PATTERN_LAYERS[c] for c in self.layer_pattern])
         if self.family in ("dense", "vlm", "encdec"):
             return self.n_layers, [("attn", "dense")]
         if self.family == "moe":
@@ -236,7 +265,7 @@ def _moe_table(cfg: ModelConfig) -> dict:
     m = cfg.moe
     d = cfg.d_model
     emb = "embed" if m.fsdp_experts else "embed_nofsdp"
-    return {
+    t = {
         "w_router": ParamSpec((d, m.n_experts), ("embed", None)),
         "w1": ParamSpec((m.n_experts, d, m.d_ff),
                         ("expert", emb, "expert_mlp")),
@@ -245,6 +274,17 @@ def _moe_table(cfg: ModelConfig) -> dict:
         "w2": ParamSpec((m.n_experts, m.d_ff, d),
                         ("expert", "expert_mlp", emb)),
     }
+    if m.expert_act == "relu2":
+        del t["w3"]
+    if m.router == "sigmoid_bias":
+        t["router_bias"] = ParamSpec((m.n_experts,), (None,))
+    if m.shared_d_ff:
+        f = m.shared_d_ff
+        t["shared_w1"] = ParamSpec((d, f), ("embed", "mlp"))
+        if m.expert_act == "swiglu":
+            t["shared_w3"] = ParamSpec((d, f), ("embed", "mlp"))
+        t["shared_w2"] = ParamSpec((f, d), ("mlp", "embed"))
+    return t
 
 
 def _mamba_table(cfg: ModelConfig) -> dict:
@@ -285,10 +325,12 @@ def _stack_specs(tree: dict, n: int) -> dict:
 
 def _sublayer_table(cfg: ModelConfig, mixer: str, ffn: str,
                     cross: bool = False) -> dict:
-    t = dict(_norm_table(cfg, "ln1"))
+    t = {}
+    if mixer != "none":
+        t.update(_norm_table(cfg, "ln1"))
     if mixer == "attn":
         t["attn"] = _attn_table(cfg)
-    else:
+    elif mixer == "mamba":
         t["mamba"] = _mamba_table(cfg)
     if cross:
         t.update(_norm_table(cfg, "lnx"))
@@ -363,7 +405,8 @@ def active_param_count(cfg: ModelConfig) -> int:
     if cfg.moe is not None:
         n_groups, plan = cfg.layer_plan()
         m = cfg.moe
-        expert_params = 3 * cfg.d_model * m.d_ff
+        mats = 2 if m.expert_act == "relu2" else 3
+        expert_params = mats * cfg.d_model * m.d_ff
         n_moe_layers = sum(1 for _, f in plan if f == "moe") * n_groups
         total -= n_moe_layers * expert_params * (m.n_experts - m.top_k)
     return total

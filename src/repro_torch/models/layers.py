@@ -108,6 +108,7 @@ class AttentionSpec:
     use_rope: bool = True
     bias: bool = False
     softmax_scale: float | None = None
+    norm_eps: float = 1e-6       # the qk-norm's
     attn_chunk: int = 0          # q-block size for chunked attention (0=off)
     attn_unroll: bool = False    # kept for config parity; eager loops unroll
 
@@ -136,8 +137,8 @@ def _project_qkv(params, x, spec: AttentionSpec, positions):
     k = k.reshape(b, s, spec.n_kv_heads, spec.head_dim)
     v = v.reshape(b, s, spec.n_kv_heads, spec.head_dim)
     if spec.qk_norm:
-        q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
+        q = rms_norm(q, params["q_norm"], spec.norm_eps)
+        k = rms_norm(k, params["k_norm"], spec.norm_eps)
     if spec.use_rope:
         q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)

@@ -33,9 +33,13 @@ class MambaSpec:
     conv_kernel: int = 4
     chunk: int = 128
     ssd_impl: str = "xla"  # "xla": plain torch | "pallas": kernel
+    heads: int = 0         # 0: expand * d_model / headdim
+    norm_eps: float = 1e-6
 
     @property
     def d_inner(self) -> int:
+        if self.heads:
+            return self.heads * self.headdim
         return self.expand * self.d_model
 
     @property
@@ -89,7 +93,8 @@ def mamba_block(params, x, spec: MambaSpec, state=None, mesh=None, tp=(),
     computed whole on each rank and its groups taken (with one group, the
     group), their gradient summed over `tp` (Megatron's f after the
     replicated branch, so that x's gradient counts it once); the gated
-    norm's mean square sums over `tp`, and so does the output projection.
+    norm's mean square sums over `tp` (with more than one group it is a
+    rank's own groups'), and so does the output projection.
     `sp` (the same axes as `tp`): sequence parallelism, x is this rank's
     rows of the sequence; the scan needs all of them, so they are
     all-gathered first (the same x on every rank, as without it) and the
@@ -167,17 +172,30 @@ def mamba_block(params, x, spec: MambaSpec, state=None, mesh=None, tp=(),
         new_state = (ssm_state, buf_x, buf_bc)
 
     y = y.reshape(bsz, seqlen, d_inner)
-    # gated RMSNorm (mamba2 style): norm(y * silu(z))
+    # gated RMSNorm (mamba2 style): norm(y * silu(z)), over each group's
+    # d_inner / n_groups channels (one group: over all of them)
     y = y * F.silu(z.float())
-    if tp:
+    if spec.n_groups > 1:   # under `tp` this rank's whole groups
+        y = _rms_norm_grouped(y.to(x.dtype), params["norm_w"], n_groups,
+                              spec.norm_eps)
+    elif tp:
         y = _rms_norm_split(y.to(x.dtype), params["norm_w"], spec.d_inner,
-                            mesh, tp)
+                            mesh, tp, spec.norm_eps)
     else:
-        y = layers.rms_norm(y.to(x.dtype), params["norm_w"])
+        y = layers.rms_norm(y.to(x.dtype), params["norm_w"], spec.norm_eps)
     out = y @ params["w_out"].to(x.dtype)
     out = partition.tp_leave(out, mesh, tp, sp)
     out = partition.constrain(out, ("batch", "seq", "embed_act"))
     return out, new_state
+
+
+def _rms_norm_grouped(y, weight, n_groups: int, eps: float):
+    """`layers.rms_norm` of each of `n_groups` equal runs of y's channels
+    (nemotron-h's group_size = d_inner / n_groups)."""
+    shape = y.shape
+    w = weight.reshape(n_groups, -1)
+    return layers.rms_norm(y.reshape(*shape[:-1], n_groups, -1), w,
+                           eps).reshape(shape)
 
 
 def _rms_norm_split(y, weight, width: int, mesh, tp, eps: float = 1e-6):

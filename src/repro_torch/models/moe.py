@@ -25,6 +25,14 @@ load-balancing aux loss, capacity-limited with token dropping.  Ties in
 the top-k go to the lower expert index, as `jax.lax.top_k` breaks them,
 and drops follow the queue position in token-major (token, k) order; both
 routes keep that order through stable sorts.
+
+nemotron-h's layer (`router="sigmoid_bias"`, `expert_act="relu2"`,
+`shared_d_ff`): scores sigmoid(x W) in fp32, the top k of scores +
+`router_bias` (the published e_score_correction_bias) chosen, weighted by
+their unbiased scores renormalised to sum 1 and times `routed_scale`;
+each expert is W2 relu(W1 x)^2; an always-on shared expert of the same
+form is added to every token's output.  That router has no aux loss (the
+bias balances the load): its aux is 0.
 """
 from __future__ import annotations
 
@@ -48,11 +56,33 @@ class MoESpec:
     fsdp_experts: bool = False  # ZeRO-3 gather of expert weights over "data"
     ep_axis: str = "model"
     fsdp_axis: str = "data"
+    router: str = "softmax"     # "softmax" | "sigmoid_bias"
+    routed_scale: float = 1.0
+    expert_act: str = "swiglu"  # "swiglu" | "relu2"
+    shared_d_ff: int = 0        # the shared expert's width (0: none)
+
+
+def _sigmoid_router(params, logits, spec: MoESpec):
+    """nemotron-h's choice and weights: top k of sigmoid(logits) + the
+    bias, weighted by the chosen unbiased scores, renormalised (the
+    published 1e-20 in the denominator) and scaled."""
+    scores = torch.sigmoid(logits)
+    choice = scores + params["router_bias"].float()
+    top_i = torch.sort(choice, dim=-1, descending=True,
+                       stable=True).indices[:, :spec.top_k]
+    top_p = scores.gather(1, top_i)
+    top_p = top_p / (top_p.sum(dim=-1, keepdim=True) + 1e-20)
+    return (top_p * spec.routed_scale, top_i,
+            torch.zeros((), dtype=torch.float32, device=logits.device))
 
 
 def router_probs(params, x: torch.Tensor, spec: MoESpec):
     """x: [T, D] -> (top-k probs [T,K], top-k idx [T,K], aux_loss scalar)."""
     logits = x.float() @ params["w_router"].float()
+    if spec.router == "sigmoid_bias":
+        return _sigmoid_router(params, logits, spec)
+    if spec.router != "softmax":
+        raise ValueError(f"unknown router {spec.router!r}")
     probs = torch.softmax(logits, dim=-1)
     # a stable descending sort keeps the lower index first among equal
     # probabilities, as jax.lax.top_k does (torch.topk promises no order)
@@ -66,11 +96,16 @@ def router_probs(params, x: torch.Tensor, spec: MoESpec):
     return top_p, top_i, aux
 
 
-def _expert_ffn(w1, w3, w2, x):
-    """Batched per-expert SwiGLU: x [E, C, D]; w1/w3 [E, D, F]; w2 [E, F, D]."""
+def _expert_ffn(params, x, spec: MoESpec):
+    """Batched per-expert FFN: x [E, C, D]; w1 (/w3) [E, D, F]; w2 [E, F,
+    D].  SwiGLU, or with `expert_act="relu2"` W2 relu(W1 x)^2."""
+    w1, w2 = params["w1"], params["w2"]
     gate = torch.bmm(x, w1.to(x.dtype))
-    up = torch.bmm(x, w3.to(x.dtype))
-    h = F.silu(gate.float()).to(x.dtype) * up
+    if spec.expert_act == "relu2":
+        h = torch.relu(gate).square()
+    else:
+        up = torch.bmm(x, params["w3"].to(x.dtype))
+        h = F.silu(gate.float()).to(x.dtype) * up
     return torch.bmm(h, w2.to(x.dtype))
 
 
@@ -112,7 +147,7 @@ def moe_dense(params, x: torch.Tensor, spec: MoESpec):
     cap = _capacity(b * s, spec)
     disp, combine = _dense_dispatch(top_p, top_i, cap, spec, x.dtype)
     xe = torch.einsum("tec,td->ecd", disp, xt)                 # [E, C, D]
-    ye = _expert_ffn(params["w1"], params["w3"], params["w2"], xe)
+    ye = _expert_ffn(params, xe, spec)
     yt = torch.einsum("tec,ecd->td", combine, ye)
     return yt.reshape(b, s, d), aux
 
@@ -226,7 +261,7 @@ def moe_ep(params, x: torch.Tensor, spec: MoESpec, mesh=None,
     spans.count("moe.experts_read", weight.shape[0])
     spans.count_device("moe.experts_hit", _experts_hit, weight)
     with spans.span("moe.experts"):
-        ye = _expert_ffn(params["w1"], params["w3"], params["w2"], xe)
+        ye = _expert_ffn(params, xe, spec)
     with spans.span("moe.combine"):
         ye = ye * weight[..., None].to(ye.dtype)
         yt = torch.zeros((t, d), dtype=ye.dtype, device=x.device)
@@ -272,17 +307,34 @@ def moe_ffn(params, x, spec: MoESpec, mesh=None, batch_axes=("data",),
     same on every rank), and the output comes back to the rows."""
     if spec.impl not in ("dense", "ep"):
         raise ValueError(f"unknown moe impl {spec.impl!r}")
+    x_in, ep_sp = x, ()
     if sp:
         x = partition.gather_whole(x, mesh, sp, 1)
     if spec.impl == "ep":
         ep_sp = sp if sp == (spec.ep_axis,) else ()
         y, aux = moe_ep(params, x, spec, mesh, batch_axes, ep_sp)
-        if ep_sp:
-            return y, aux
     elif mesh is None:
         y, aux = moe_dense(params, x, spec)
     else:
         y, aux = moe_dense_sharded(params, x, spec, mesh, batch_axes)
-    if sp:
+    if sp and not ep_sp:
         y = partition.split_to_group(y, mesh, sp, 1)
-    return y, aux
+    return _with_shared(params, x_in, y, spec, mesh, sp), aux
+
+
+def _with_shared(params, x, y, spec: MoESpec, mesh, sp):
+    """y plus the shared expert of x [B, S, D] (y's rows), an expert of the
+    experts' form over every token.  Added after the combine's sum over
+    the expert ranks, so it counts once; under sequence parallelism x is
+    this rank's rows, so the shared weights' gradients sum over `sp`."""
+    if not spec.shared_d_ff:
+        return y
+    w = {k[len("shared_"):]: v for k, v in params.items()
+         if k.startswith("shared_")}
+    if sp:
+        w = {k: partition.copy_to_group(v, mesh, sp) for k, v in w.items()}
+    with spans.span("moe.shared", device=True):
+        b, s, d = x.shape
+        one = {k: v[None] for k, v in w.items()}
+        return y + _expert_ffn(one, x.reshape(1, b * s, d),
+                               spec).reshape(b, s, d)

@@ -72,7 +72,7 @@ def _norm(sub, prefix, x, cfg: ModelConfig, par=None):
         if b is not None:
             b = partition.copy_to_group(b, par.mesh, par.sp)
     if cfg.norm_kind == "rms":
-        return layers.rms_norm(x, w)
+        return layers.rms_norm(x, w, cfg.norm_eps)
     return layers.layer_norm(x, w, b)
 
 
@@ -97,7 +97,9 @@ def moe_spec(cfg: ModelConfig) -> moe_mod.MoESpec:
     return moe_mod.MoESpec(
         n_experts=m.n_experts, top_k=m.top_k, d_ff=m.d_ff,
         capacity_factor=m.capacity_factor, impl=m.impl,
-        fsdp_experts=m.fsdp_experts)
+        fsdp_experts=m.fsdp_experts, router=m.router,
+        routed_scale=m.routed_scale, expert_act=m.expert_act,
+        shared_d_ff=m.shared_d_ff)
 
 
 def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
@@ -192,15 +194,17 @@ def _remat(fn, cfg: ModelConfig):
     return run
 
 
-# the span of each sub-layer's mixer (`repro_torch.obs.spans`)
+# the span of each sub-layer's mixer (`repro_torch.obs.spans`); a "none"
+# mixer (a block that is only an FFN) has none
 _SPAN = {"attn": "layer.attn", "mamba": "layer.ssm"}
 
 
 def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
               cache=None, cache_pos=None, enc_out=None, causal=True,
               par=None):
-    """One (mixer, [cross attention,] ffn) sub-layer; returns (h, aux), aux
-    the MoE layer's load-balance loss (0 without one).  `cache` (this
+    """One (mixer, [cross attention,] ffn) sub-layer (mixer "none": no
+    mixer and no ln1); returns (h, aux), aux the MoE layer's load-balance
+    loss (0 without one).  `cache` (this
     sub-layer's views into the stacked cache) is updated in place.  A
     sub-layer with cross attention takes its k/v from `enc_out` (and keeps
     them in `cache`) or, without it, from `cache`.  Under a mesh (`par`)
@@ -211,8 +215,11 @@ def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
     batch_axes = None if par is None else par.batch_axes
     sp = () if par is None else par.sp
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    with spans.span(_SPAN[mixer], device=True):
-        if mixer == "attn":
+    with (spans.span(_SPAN[mixer], device=True) if mixer != "none"
+          else spans.NULL):
+        if mixer == "none":
+            y = None
+        elif mixer == "attn":
             spec = cfg.attn_spec
             if not causal:
                 spec = dataclasses.replace(spec, causal=False)
@@ -245,7 +252,8 @@ def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
                         old.copy_(new)
                     else:
                         partition.store_batch(view, new, batch_axes)
-        h = h + y
+        if y is not None:
+            h = h + y
     if "xattn" in sub:
         attn_tp = tp.get("attn", ())
         if enc_out is not None:
@@ -309,7 +317,7 @@ def run_stack(blocks, cfg: ModelConfig, h, positions, *, plan=None,
         # carry (the identity on a rank's local tensor)
         h = partition.constrain(h, ("batch", "seq", "embed_act"))
         for i, item in enumerate(plan):
-            sub_cache = None if cache_g is None else cache_g[f"sub{i}"]
+            sub_cache = None if cache_g is None else cache_g.get(f"sub{i}")
             h, aux = _sublayer(group[f"sub{i}"], cfg, item, h, positions,
                                cache=sub_cache, cache_pos=cache_pos,
                                enc_out=enc_out, causal=causal, par=par)
@@ -758,6 +766,8 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     n_groups, plan = cfg.layer_plan()
     group = {}
     for i, (mixer, _) in enumerate(plan):
+        if mixer == "none":
+            continue
         if mixer == "attn":
             kv_shape = (n_groups, batch, max_len, cfg.n_kv_heads,
                         cfg.head_dim)
@@ -791,6 +801,8 @@ def cache_axis_specs(cfg: ModelConfig, enc_len: int = 0) -> dict:
     _, plan = cfg.layer_plan()
     group = {}
     for i, (mixer, _) in enumerate(plan):
+        if mixer == "none":
+            continue
         if mixer == "attn":
             ax = ("layers", "batch", "seq_kv", "kv_heads_kv", None)
             sub = {"k": ax, "v": ax}

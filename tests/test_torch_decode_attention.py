@@ -113,6 +113,8 @@ def test_split_count_depends_on_pairs_and_sms_only(b, hkv, sms, want):
     ((1, 4, 48), (1, 8, 2, 48), 8, "head_dim 48"),
     ((1, 4, 80), (1, 8, 4, 80), 8, "head_dim 80"),
     ((1, 18, 32), (1, 8, 2, 32), 8, "at most 8 per kv head"),
+    ((1, 24, 32), (1, 8, 2, 32), 8, r"or 16 \(two CTAs of 8\)"),
+    ((1, 64, 32), (1, 8, 2, 32), 8, r"or 16 \(two CTAs of 8\)"),
     ((1, 6, 32), (1, 8, 4, 32), 8, "multiple of kv heads"),
     ((1, 4, 32), (1, 8, 2, 32), 0, r"length 0 outside \[1, 8\]"),
     ((1, 4, 32), (1, 8, 2, 32), 9, r"length 9 outside \[1, 8\]"),
@@ -133,6 +135,10 @@ def test_decode_kernel_input_checks_accept_the_cache_in_place():
     q = torch.zeros(4, 24, 128)
     k = torch.zeros(4, 1056, 8, 128)
     ops._check_cuda_inputs(q, k, k, 1040)
+    # nemotron-h's 16 q heads a kv head (two CTAs of 8)
+    ops._check_cuda_inputs(torch.zeros(4, 32, 128),
+                           torch.zeros(4, 1056, 2, 128),
+                           torch.zeros(4, 1056, 2, 128), 1040)
     # phi-3-vision's MHA cache at head dim 96, fp32 and bf16
     for dtype in (torch.float32, torch.bfloat16):
         ops._check_cuda_inputs(torch.zeros(4, 32, 96, dtype=dtype),
