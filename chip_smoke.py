@@ -41,7 +41,8 @@ the final `{"ok": true, ...}` line from printing:
      fp64 at twice the plain bf16 version's error;
   3. serve llama3.2-3b at full width (B=4, 1024-token prompt, 32 new
      tokens, attn_impl="pallas"): the decode kernel must launch exactly
-     28 layers x 31 steps = 868 times and no other kernel; a plain ("xla")
+     28 layers x 31 steps = 868 times, the flash kernel 28 times (the
+     prefill's attention, a layer) and no other kernel; a plain ("xla")
      rerun with the same weights, teacher-forced on the served tokens, must
      match every step's logits at atol = rtol = 1e-3 (fp32 over 28 layers,
      sums in another order);
@@ -100,9 +101,10 @@ the final `{"ok": true, ...}` line from printing:
      fp32) at full width, and
  10. qwen3-moe-30b-a3b cut to 16 of its 48 layers (10.59 B params) at full
      width: served as phases 3 and 5 (the kernel path, MoE layers on the
-     gather route, the decode step's CUDA graph): exactly 31 decode and 7
-     SSD launches (jamba) / 496 decode launches (qwen3-moe) and no other
-     kernel; the same run with every decode step eager, its routes
+     gather route, the decode step's CUDA graph): exactly 31 decode, 1
+     flash and 7 SSD launches (jamba) / 496 decode and 16 flash launches
+     (qwen3-moe) and no other kernel; the same run with every decode step
+     eager, its routes
      recorded, equal to it bit for bit (both under deterministic
      algorithms), and every step's logits within 1e-3 of a teacher-forced
      plain rerun (plain attention and SSD, the one-hot MoE oracle), with
@@ -119,8 +121,9 @@ the final `{"ok": true, ...}` line from printing:
      times: 9 Mamba2, 9 MoE with the sigmoid router, relu² experts and
      the shared expert, 3 attention at 16 q heads a kv head; 12.8 B
      params, 51.2 GB in fp32) at full width, run after 10: as phases 9
-     and 10, with exactly 3 x 31 = 93 decode launches (the g=16 instance)
-     and 9 SSD launches (8 groups) in the served run, 3 flash and 9 SSD
+     and 10, with exactly 3 x 31 = 93 decode launches (the g=16 instance),
+     3 flash launches (the prefill) and 9 SSD launches (8 groups) in the
+     served run, 3 flash and 9 SSD
      in the forward, and routes pinned at ties of the biased score (gap
      < SIGMOID_TIE_GAP); its stage profile names the shared expert.
  11. whisper-large-v3 at full width and depth (32 encoder and 32 decoder
@@ -128,7 +131,8 @@ the final `{"ok": true, ...}` line from printing:
  12. phi-3-vision-4.2b at full width and depth (32 layers, 3.822 B params,
      15.29 GB; 576 stub patches spliced over the prompt's first
      positions): served as phase 3 (exactly 32 x 31 = 992 decode
-     launches, no other kernel; cross attention and the encoder are plain,
+     launches and 32 flash launches, the decoder's self-attention in the
+     prefill, no other kernel; cross attention and the encoder are plain,
      as the reference's), every step's logits within 1e-3 of a
      teacher-forced plain rerun; the forward (exactly 32 flash launches,
      hidden state within 1e-3); prefill and decode-step times and a
@@ -222,8 +226,9 @@ every phase), and phase 7's breakdowns are read from it.  Phase 7 also times the
 qwen3-moe's, whisper's and phi-3-vision's heads and at nemotron-h's in
 the nemotronh.prefill cell's cache (4112 rows, 2305 and 4097 valid), the
 flash kernel at their forward shapes (and in bf16 at the lm-forward
-module's, B=8, S=64) and the SSD kernel at jamba's and nemotron-h's
-shapes.  Then the `kernels` JSON
+module's, B=8, S=64; in fp32 at qwen3-moe's and nemotron-h's heads at the
+benchmark cells' prefills, B=4, S=2304 and 4096) and the SSD kernel at
+jamba's and nemotron-h's shapes.  Then the `kernels` JSON
 line, the card line and the final line.
 
 It imports nothing of jax or of the reference package `repro`.
@@ -282,6 +287,10 @@ LAYERS = {LLAMA: 28, MAMBA: 48, WHISPER: 32, PHI3V: 32}
 # depth the benchmark's nemotronh.prefill cell serves
 DEPTH_CUT = {JAMBA: 8, QWEN_MOE: 16, NEMOTRON: 21}
 BATCH, PROMPT, NEW = 4, 1024, 32
+# the prefill lengths phase 7 times the flash kernel at for the benchmark's
+# qwen3moe.prefill and nemotronh.prefill cells: a middle length of their
+# mix and its longest, the p95 batch's
+CELL_PREFILL_S = (2304, 4096)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 # (b, s_cache, hq, hkv, hd, length): the reference's DECODE_CASES
@@ -837,13 +846,14 @@ def phase_serve(smoke: Smoke, arch: str) -> None:
     out = serve(run)
     launches = _read_launches()
     # llama, whisper, phi-3-vision: the decode kernel at every (decoder)
-    # layer of every decode step (prefill, and whisper's encoder and cross
-    # attention, are plain, as the reference's); mamba: the SSD scan at
-    # every layer of the prefill (its decode step is plain torch)
+    # layer of every decode step and the flash kernel at every one in the
+    # prefill (whisper's encoder and cross attention are plain, as the
+    # reference's); mamba: the SSD scan at every layer of the prefill (its
+    # decode step is plain torch)
     want = ({"decode_attention": 0, "flash_attention": 0, "ssd_scan": layers}
             if arch == MAMBA else
-            {"decode_attention": layers * (NEW - 1), "flash_attention": 0,
-             "ssd_scan": 0})
+            {"decode_attention": layers * (NEW - 1),
+             "flash_attention": layers, "ssd_scan": 0})
     smoke.results.setdefault("launches", {})[f"serve {arch}"] = launches
     _check_launches(smoke, f"serve {arch}", launches, want)
     tokens, logits = torch.from_numpy(out["tokens"]), out["logits"]
@@ -1114,8 +1124,8 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
             eager = serve(run)
     smoke.results.setdefault("launches", {})[f"serve {arch}"] = launches
     _check_launches(smoke, f"serve {arch}", launches, {
-        "decode_attention": n["attn"] * (NEW - 1), "flash_attention": 0,
-        "ssd_scan": n["mamba"]})
+        "decode_attention": n["attn"] * (NEW - 1),
+        "flash_attention": n["attn"], "ssd_scan": n["mamba"]})
     tokens, logits = torch.from_numpy(out["tokens"]), out["logits"]
     smoke.check(f"serve {arch}: the graphed decode step equals the eager "
                 f"one bit for bit (tokens, every step's logits)",
@@ -3340,6 +3350,17 @@ def phase_times(smoke: Smoke) -> None:
             kernels[-1][arch] = _flash_entry(
                 smoke, gen, flush, c.n_heads, c.n_kv_heads, c.head_dim,
                 c.head_dim ** -0.5, f32, arch)
+        # and in fp32 at the served prefills of the benchmark's attention
+        # cells (qwen3-moe's 32 / 4 heads, nemotron-h's 32 / 2; B=4 at a
+        # middle and the longest length of their mix), launched once an
+        # attention layer of each prefill
+        for arch in (QWEN_MOE, NEMOTRON):
+            c = _full_cfg(arch, "pallas")
+            for s in CELL_PREFILL_S:
+                kernels[-1][f"{arch} prefill S={s}"] = _flash_shape_entry(
+                    smoke, gen, flush, BATCH, s, c.n_heads, c.n_kv_heads,
+                    c.head_dim, c.head_dim ** -0.5, f32,
+                    _launches(smoke, f"serve {arch}", "flash_attention"))
         # ssd_scan: one layer of the full-width mamba2-780m prefill, and
         # (nested) of jamba's and of nemotron-h's (8 B/C groups)
         kernels.append(_ssd_entry(smoke, gen, flush, MAMBA))

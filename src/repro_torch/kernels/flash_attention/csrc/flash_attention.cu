@@ -84,10 +84,13 @@
 // tolerance by ~80x, so every fp32 operand is split as x = hi + lo (hi =
 // x rounded to tf32, lo = x - hi, which the tensor cores truncate to
 // tf32) and each product is hi*lo' + lo*hi' + hi*hi' (3xTF32, the small
-// terms first), accumulated in fp32.  Its error against an fp64
-// computation stays at fp32's own, also where a peaky softmax (inputs x3)
-// moves both (chip_smoke.py phase 2).  Its bound is 3x the FLOP over the
-// 495 TFLOP/s TF32 rate.
+// terms first), accumulated in fp32.  The tensor cores round their sums
+// toward zero, so each key tile's P.V is summed in fresh accumulators and
+// added to O in fp32 (below).  Its error against an fp64 computation
+// stays at fp32's own, at 4096 keys too (3.5e-6 of the largest output
+// against the plain version's 3.0e-6) and where a peaky softmax (inputs
+// x3) moves both (chip_smoke.py phase 2).  Its bound is 3x the FLOP over
+// the 495 TFLOP/s TF32 rate.
 // What the design does about it:
 //   - one CTA of four warps per (q tile of 64 rows, q head, batch); each
 //     warp owns 16 query rows, so a warp's S tile (16 x 64 keys) and its
@@ -119,13 +122,15 @@
 //   - scores are scaled by scale*log2(e) after Q.K^T.
 // Tried on the H100 and slower: 128-row CTAs of eight warps (one an SM),
 // 32-key tiles at three CTAs an SM, skipping a warp's masked n tiles on the
-// diagonal (the early exit breaks the unrolled schedule), and cvt.rna for
-// the split; ordering the passes over independent accumulators by hand
-// changed nothing (the compiler already interleaves them).  What bounds it
-// now is the rate of mma.sync itself.  Later (ROADMAP B2): TF32 wgmma
-// (K-major operands only, so V transposed in shared memory, hi/lo tiles).
-// The template keeps the element type of its first version; only fp32 is
-// instantiated.
+// diagonal (the early exit breaks the unrolled schedule), cvt.rna for
+// the split, and a fresh accumulator for each k-step of P.V (255
+// registers, 21% slower at 4096 keys; a group of W n tiles a tile takes
+// 253 at hd=128 and costs 0.3%); ordering the passes over independent
+// accumulators by hand changed nothing (the compiler already interleaves
+// them).  What bounds it now is the rate of mma.sync itself.  Later
+// (ROADMAP B2): TF32 wgmma (K-major operands only, so V transposed in
+// shared memory, hi/lo tiles).  The template keeps the element type of
+// its first version; only fp32 is instantiated.
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda is linked
 
 #include <type_traits>
@@ -389,37 +394,49 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // O += P V_t.  k-step j = S's n tile j: A = {P[g][2t], P[g+8][2t],
     // P[g][2t+1], P[g+8][2t+1]} straight from the accumulators, so B's k
     // rows t, t+4 are the keys 8j + 2t, 8j + 2t + 1; n tile
-    // n = c * W + w, column g of it is hd column 8W*c + W*g + w
+    // n = c * W + w, column g of it is hd column 8W*c + W*g + w.  O
+    // accumulated through the tensor cores over every tile drifted by up
+    // to an ulp a k-step (4e-5 of O at 4096 keys), so a group of W n
+    // tiles sums this tile's k-steps in fresh accumulators, added to O in
+    // fp32 (P is split again for each group)
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const float p[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
-      uint32_t phi[4], plo[4];
+    for (int c = 0; c < NT / W; ++c) {
+      float pv[W][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(p[e], phi[e], plo[e]);
-      const T* vrow = sV + (8 * j + 2 * tig) * LDV + W * gid;
+      for (int w = 0; w < W; ++w)
 #pragma unroll
-      for (int c = 0; c < NT / W; ++c) {
+        for (int e = 0; e < 4; ++e) pv[w][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float p[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        uint32_t phi[4], plo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(p[e], phi[e], plo[e]);
+        const T* vrow = sV + (8 * j + 2 * tig) * LDV + W * gid + 8 * W * c;
         float va[W], vb[W];
-        lds<T, W>(vrow + 8 * W * c, va);
-        lds<T, W>(vrow + LDV + 8 * W * c, vb);
+        lds<T, W>(vrow, va);
+        lds<T, W>(vrow + LDV, vb);
 #pragma unroll
         for (int w = 0; w < W; ++w) {
-          float(&acc)[4] = o[c * W + w];
           if constexpr (C::kSplit) {
             uint32_t h0, l0, h1, l1;
             split_tf32(va[w], h0, l0);
             split_tf32(vb[w], h1, l1);
-            mma_tf32(acc, plo, h0, h1);
-            mma_tf32(acc, phi, l0, l1);
-            mma_tf32(acc, phi, h0, h1);
+            mma_tf32(pv[w], plo, h0, h1);
+            mma_tf32(pv[w], phi, l0, l1);
+            mma_tf32(pv[w], phi, h0, h1);
           } else {
             const uint32_t b0 = __float_as_uint(va[w]);
             const uint32_t b1 = __float_as_uint(vb[w]);
-            mma_tf32(acc, plo, b0, b1);
-            mma_tf32(acc, phi, b0, b1);
+            mma_tf32(pv[w], plo, b0, b1);
+            mma_tf32(pv[w], phi, b0, b1);
           }
         }
       }
+#pragma unroll
+      for (int w = 0; w < W; ++w)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[c * W + w][e] += pv[w][e];
     }
   }
 

@@ -18,8 +18,9 @@ mesh axes.
 Attention paths:
   - cache-free causal:  _sdpa | _chunked_sdpa (q-block loop) | flash kernel
   - cache-free non-causal (whisper's encoder): _sdpa | _chunked_sdpa
-  - prefill (s > 1):    _sdpa / _chunked_sdpa over the fresh k/v, as the
-    reference does (it never sends prefill through the flash kernel)
+  - prefill (s > 1):    over the fresh k/v: the flash kernel for causal
+    attention without a mesh, else _sdpa / _chunked_sdpa (the
+    reference's prefill is always the latter)
   - decode (s == 1):    _local_cached_attention | decode kernel | the
     sequence-sharded bodies under a mesh
   - cross (whisper):    _sdpa / _chunked_sdpa, unmasked, over the encoder's
@@ -39,6 +40,7 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.obs import spans
 from repro_torch.sharding import partition
 
 ATTN_IMPLS = ("xla", "pallas")
@@ -525,7 +527,14 @@ def attention(params, x, spec: AttentionSpec, positions,
                      if seq_flat else 0)
             _write_rows(partition.local(k_cache), start, k_all, cache_pos)
             _write_rows(partition.local(v_cache), start, v_all, cache_pos)
-            if s > 1:
+            if s > 1 and attn_impl == "pallas" and spec.causal \
+                    and mesh is None:
+                # prefill from row 0: the fresh k/v are the whole context,
+                # so the causal kernel computes what _sdpa does below
+                out = fa_ops.flash_attention(q, k, v, causal=True,
+                                             scale=spec.scale)
+                spans.count("attn.prefill_flash", 1)
+            elif s > 1:
                 # prefill: attend over the fresh k/v (== cache content)
                 if spec.attn_chunk and s > spec.attn_chunk:
                     out = _chunked_sdpa(q, k, v, spec, 0, causal=True)
