@@ -16,17 +16,14 @@ online softmax, `all_reduce` MAX and SUM over the ranks of the `seq_kv`
 mesh axes.
 
 Attention paths:
-  - cache-free causal:  _sdpa | _chunked_sdpa (q-block loop) | flash kernel
-  - cache-free non-causal (whisper's encoder): _sdpa | _chunked_sdpa
-  - prefill (s > 1):    over the fresh k/v: the flash kernel for causal
-    attention without a mesh, else _sdpa / _chunked_sdpa (the
-    reference's prefill is always the latter)
+  - full sequence (`_attend`: the cache-free forward, the prefill over
+    its fresh k/v, whisper's cross attention over the encoder's k/v): the
+    flash kernel for causal attention under "pallas" (the prefill's only
+    without a mesh), else _sdpa / _chunked_sdpa (q-block loop), the
+    reference's route; cross attention is unmasked and, as the
+    reference's `_sublayer` sends it, always "xla"
   - decode (s == 1):    _local_cached_attention | decode kernel | the
-    sequence-sharded bodies under a mesh
-  - cross (whisper):    _sdpa / _chunked_sdpa, unmasked, over the encoder's
-    k/v, as the reference's `_sublayer` sends cross attention through
-    "xla" whatever the config's attn_impl; at s == 1 under a mesh the
-    sharded non-causal body
+    sequence-sharded bodies under a mesh (cross: the non-causal body)
 `attn_impl="xla"` selects the plain torch math, `"pallas"` the Hopper
 kernels; the names are the reference's, so configs map one-to-one.
 """
@@ -189,6 +186,25 @@ def _chunked_sdpa(q, k, v, spec: AttentionSpec, q_offset, causal=True):
             mask = (kpos <= qpos)[None, None, None]
         outs.append(_sdpa(qb, k, v, spec, mask))
     return torch.cat(outs, dim=1)
+
+
+def _attend(q, k, v, spec: AttentionSpec, attn_impl: str, *, causal: bool,
+            counter: str | None = None) -> torch.Tensor:
+    """Full-sequence attention, q:[B,Sq,Hq,hd] over k,v:[B,Sk,Hkv,hd] from
+    row 0 (causal: Sq == Sk).  The flash kernel under "pallas" when causal,
+    before `attn_chunk` (each call adds 1 to `counter`), else
+    `_chunked_sdpa` where `attn_chunk` splits q, else `_sdpa`.  The mesh
+    rule is the caller's: the prefill passes "xla" under a mesh, the
+    cache-free forward keeps the kernel there."""
+    s = q.shape[1]
+    if attn_impl == "pallas" and causal:
+        if counter:
+            spans.count(counter, 1)
+        return fa_ops.flash_attention(q, k, v, causal=True, scale=spec.scale)
+    if spec.attn_chunk and s > spec.attn_chunk:
+        return _chunked_sdpa(q, k, v, spec, 0, causal=causal)
+    return _sdpa(q, k, v, spec,
+                 causal_mask(s, s, device=q.device) if causal else None)
 
 
 def _local_cached_attention(q, k_cache, v_cache, spec, cache_pos):
@@ -489,22 +505,12 @@ def attention(params, x, spec: AttentionSpec, positions,
         else:
             if tp and k.shape[2] == whole.n_kv_heads:  # a cache's: every head
                 k, v = k[:, :, heads], v[:, :, heads]
-            if spec.attn_chunk and s > spec.attn_chunk:
-                out = _chunked_sdpa(q, k.to(q.dtype), v.to(q.dtype), spec,
-                                    0, causal=False)
-            else:
-                out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), spec, None)
+            out = _attend(q, k.to(q.dtype), v.to(q.dtype), spec, attn_impl,
+                          causal=False)
         new_cache = None
     elif kv_cache is None:
         q, k, v = _project_qkv(params, x, spec, positions)
-        if attn_impl == "pallas" and spec.causal:
-            out = fa_ops.flash_attention(q, k, v, causal=True,
-                                         scale=spec.scale)
-        elif spec.attn_chunk and s > spec.attn_chunk:
-            out = _chunked_sdpa(q, k, v, spec, 0, causal=spec.causal)
-        else:
-            mask = causal_mask(s, s, device=x.device) if spec.causal else None
-            out = _sdpa(q, k, v, spec, mask)
+        out = _attend(q, k, v, spec, attn_impl, causal=spec.causal)
         new_cache = None
     else:
         q, k, v = _project_qkv(params, x, spec, positions)
@@ -527,20 +533,11 @@ def attention(params, x, spec: AttentionSpec, positions,
                      if seq_flat else 0)
             _write_rows(partition.local(k_cache), start, k_all, cache_pos)
             _write_rows(partition.local(v_cache), start, v_all, cache_pos)
-            if s > 1 and attn_impl == "pallas" and spec.causal \
-                    and mesh is None:
-                # prefill from row 0: the fresh k/v are the whole context,
-                # so the causal kernel computes what _sdpa does below
-                out = fa_ops.flash_attention(q, k, v, causal=True,
-                                             scale=spec.scale)
-                spans.count("attn.prefill_flash", 1)
-            elif s > 1:
-                # prefill: attend over the fresh k/v (== cache content)
-                if spec.attn_chunk and s > spec.attn_chunk:
-                    out = _chunked_sdpa(q, k, v, spec, 0, causal=True)
-                else:
-                    out = _sdpa(q, k, v, spec,
-                                causal_mask(s, s, device=x.device))
+            if s > 1:
+                # prefill from row 0 over the fresh k/v (== cache content)
+                out = _attend(q, k, v, spec,
+                              attn_impl if mesh is None else "xla",
+                              causal=True, counter="attn.prefill_flash")
             elif attn_impl == "pallas":
                 if seq_flat:
                     kc = _gathered_seq(k_cache, mesh, seq_flat, heads)

@@ -3,15 +3,17 @@
 The FOS daemon runs chunks in a pool of worker threads, so two workers can
 reach a kernel for the first time together.  `nvcc` and the library loader
 are stubbed: this machine has neither a CUDA toolkit nor a card.
+
+Also the port's test setup: torch runs this process's share of the
+cores (`torch_cpu.py`).
 """
 from __future__ import annotations
 
 import sys
 import threading
 
-import pytest
-
-pytest.importorskip("torch")
+import torch_cpu
+from torch_cpu import torch  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
 
@@ -101,3 +103,9 @@ def test_concurrent_builds_run_nvcc_once_into_their_own_file(
     assert all(p == paths[0] for p in paths)
     assert paths[0]["k"].read_text() == "library"
     assert not list((tmp_path / "build").glob("*.tmp"))
+
+
+def test_torch_runs_one_core_share_of_threads():
+    """One intra-op thread a worker under pytest-xdist's -n 6 on 8 cores,
+    every core under a single pytest process (`torch_cpu.threads`)."""
+    assert torch.get_num_threads() == torch_cpu.threads()

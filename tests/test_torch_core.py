@@ -33,7 +33,7 @@ from pathlib import Path
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 import repro_torch.core as port_core  # noqa: E402
 from repro_torch.core.shell import Shell  # noqa: E402

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 from repro_torch import tree as tree_mod  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402

@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 import torch.distributed as dist  # noqa: E402
 import torch.distributed._functional_collectives as funcol  # noqa: E402

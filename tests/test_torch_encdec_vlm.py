@@ -22,7 +22,7 @@ import zlib
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -41,17 +41,6 @@ IMPLS = [("xla", "xla"), ("xla", "pallas_interpret"), ("pallas", "xla"),
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, S, NEW = 2, 12, 8     # batch, prompt length, greedy tokens
 STUB = {"encdec": "frames", "vlm": "patches"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread while this file runs: the test files run in
-    parallel processes, and a team of threads for each oversubscribes the
-    CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ref_cfg(arch, ref_impl="xla"):

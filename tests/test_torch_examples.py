@@ -29,9 +29,8 @@ import re
 from pathlib import Path
 
 import numpy as np
-import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 from repro_torch.examples import elastic_train, fos_registry_tour  # noqa: E402
 from repro_torch.examples import multi_tenant_serving, quickstart  # noqa: E402

@@ -8,7 +8,7 @@ import sys
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 from repro_torch.core import Shell, uniform_shell  # noqa: E402
 from repro_torch.launch.serve import DaemonServeRun, ServeRun, serve, \

@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -28,7 +28,7 @@ from pathlib import Path
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 from plain_ref import nemotron_h as ref  # noqa: E402
 from repro_torch import configs  # noqa: E402

@@ -18,7 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 import torch_ranks  # noqa: E402
 

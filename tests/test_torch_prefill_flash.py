@@ -5,7 +5,8 @@ Under `attn_impl="pallas"` and without a mesh, a causal prefill sends
 its attention over the fresh k/v through `fa_ops.flash_attention`, once
 an attention layer, and counts it as `attn.prefill_flash`; under "xla"
 it keeps `_sdpa` / `_chunked_sdpa`.  The prefill starts at cache row 0,
-so both compute the same causal square.
+so both compute the same causal square.  The cache-free forward takes
+the same route (`layers._attend`) and counts nothing.
 
 On the CPU the wrapper runs its plain version: the two routes' prefill
 logits agree within 1e-6 and their caches bit for bit, at GQA groups of
@@ -23,7 +24,7 @@ import dataclasses
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 from repro_torch import tree as tree_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -75,26 +76,36 @@ SPECS = {
 }
 
 
-def _prefill(cfg, params, prompt, extra, impl):
+def _run(cfg, params, prompt, extra, impl, path):
+    """(cache leaves, output, `attn.prefill_flash`'s count) of the prefill
+    (its last logits) or of the cache-free forward (its final hidden
+    states; no cache) on `impl`."""
     cfg = dataclasses.replace(cfg, attn_impl=impl)
-    with torch.inference_mode():
-        return stack.build_prefill_fn(cfg, S + NEW)(
-            params, {**extra, "tokens": prompt})
+    batch = {**extra, "tokens": prompt}
+    with torch.inference_mode(), spans.recorder(device=False) as rec:
+        if path == "prefill":
+            cache, out = stack.build_prefill_fn(cfg, S + NEW)(params, batch)
+        else:
+            cache, (out, _) = {}, stack.forward(params, cfg, batch)
+    n = sum(c.get(COUNTER, 0) for c in rec["counters"].values())
+    return tree_mod.leaves(cache), out, n
 
 
-def _routes_agree(cfg, params, prompt, extra, calls):
-    """Prefill on both routes: the kernel route calls the wrapper once an
-    attention layer and the plain route never; the logits agree within
-    1e-6 and every cache leaf bit for bit."""
-    cache_k, logits_k = _prefill(cfg, params, prompt, extra, "pallas")
+def _routes_agree(cfg, params, prompt, extra, calls, path="prefill"):
+    """`path` on both routes: the kernel route calls the wrapper once an
+    attention layer, the prefill's counted as `attn.prefill_flash`, and
+    the plain route never; the outputs agree within 1e-6 and every cache
+    leaf bit for bit."""
+    cache_k, out_k, n_k = _run(cfg, params, prompt, extra, "pallas", path)
     assert len(calls) == _attn_layers(cfg) > 0
     assert all(shape[1] == S for shape in calls)
+    assert n_k == (len(calls) if path == "prefill" else 0)
     del calls[:]
-    cache_p, logits_p = _prefill(cfg, params, prompt, extra, "xla")
-    assert not calls
-    torch.testing.assert_close(logits_k, logits_p, atol=1e-6, rtol=1e-6)
-    assert all(torch.equal(a, b) for a, b in zip(tree_mod.leaves(cache_k),
-                                                 tree_mod.leaves(cache_p)))
+    cache_p, out_p, n_p = _run(cfg, params, prompt, extra, "xla", path)
+    assert not calls and n_p == 0
+    torch.testing.assert_close(out_k, out_p, atol=1e-6, rtol=1e-6)
+    assert len(cache_k) == len(cache_p)
+    assert all(torch.equal(a, b) for a, b in zip(cache_k, cache_p))
 
 
 @pytest.mark.parametrize("name", sorted(SPECS))
@@ -106,17 +117,23 @@ def test_prefill_routes_agree_at_model_heads(name, flash_calls):
     _routes_agree(cfg, params, prompt, {}, flash_calls)
 
 
-@pytest.mark.parametrize("arch", [
-    "qwen3-moe-30b-a3b", "nemotron-3-nano-30b-a3b", "llama3.2-3b",
-    "jamba-v0.1-52b", "whisper-large-v3", "phi-3-vision-4.2b"])
-def test_prefill_routes_agree_on_reduced_archs(arch, flash_calls):
+ARCHS = ["qwen3-moe-30b-a3b", "nemotron-3-nano-30b-a3b", "llama3.2-3b",
+         "jamba-v0.1-52b", "whisper-large-v3", "phi-3-vision-4.2b"]
+
+
+@pytest.mark.parametrize("arch,path", [
+    pytest.param(a, p, id=a if p == "prefill" else f"{a}-forward")
+    for p in ("prefill", "forward") for a in ARCHS])
+def test_prefill_routes_agree_on_reduced_archs(arch, path, flash_calls):
     """Reduced configs as served (fp32; MoE layers on the gather route on
-    both sides, so only the attention differs); whisper's encoder and
-    cross attention stay plain on both."""
+    both sides, so only the attention differs), through the prefill and
+    the cache-free forward, which share the route (`layers._attend`):
+    the same prompt makes as many wrapper calls on both.  Whisper's
+    encoder and cross attention stay plain on both routes."""
     cfg, params, prompt, extra = serve_inputs(
         ServeRun(arch=arch, batch=B, prompt_len=S, max_new_tokens=NEW,
                  device="cpu", attn_impl="pallas"), torch.device("cpu"))
-    _routes_agree(cfg, params, prompt, extra, flash_calls)
+    _routes_agree(cfg, params, prompt, extra, flash_calls, path)
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])

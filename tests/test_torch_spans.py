@@ -18,7 +18,7 @@ import json
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch.serve import (ServeRun, generate, serve,  # noqa: E402

@@ -32,7 +32,7 @@ import json
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 import torch_ranks  # noqa: E402
 from repro_torch import configs  # noqa: E402

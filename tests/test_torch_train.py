@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from torch_cpu import torch  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -9,7 +9,8 @@ workdir)` on each; each rank's result is `torch.save`d to
 subprocess with a timeout of its own and returns the results, rank by
 rank.  The jobs read their inputs (weights, tokens, the reference's shard
 indices) from files the test wrote into `workdir`; they import torch and
-the port only, never jax.
+the port only, never jax.  Each rank runs one torch thread: the port
+tests' thread rule is stated in `torch_cpu.py`.
 """
 from __future__ import annotations
 
