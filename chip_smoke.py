@@ -38,7 +38,13 @@ the final `{"ok": true, ...}` line from printing:
      (wgmma) at every head dim (16, 32, 64, 96, 128) at lengths ragged
      against its 64-row tiles (77, 200, 1000; GQA and MHA), on q/k/v cut
      from one fused projection (strided views), and with inputs x3 against
-     fp64 at twice the plain bf16 version's error;
+     fp64 at twice the plain bf16 version's error; the grouped expert
+     product (`expert_gemm`) at the expert layers of the qwen3moe.prefill
+     and nemotronh.prefill cells in a B=4 prefill of S in CELL_PREFILL_S
+     (capacities 720, 1280 / 544, 960), both products, on the counts of a
+     real dispatch: the occupied rows within 1e-6 of torch.bmm's largest
+     value (0 expected) and every row past a count an exact 0, written
+     into memory that held NaN;
   3. serve llama3.2-3b at full width (B=4, 1024-token prompt, 32 new
      tokens, attn_impl="pallas"): the decode kernel must launch exactly
      28 layers x 31 steps = 868 times, the flash kernel 28 times (the
@@ -67,7 +73,14 @@ the final `{"ok": true, ...}` line from printing:
      the host's enqueue cost is hidden: `device_time`), how many device
      kernels one call enqueues (the kernel nodes of one call captured into
      a CUDA graph; checked against each wrapper's own: 1 flash, 1 decode,
-     4 SSD), a check that no device time is under its bound, the flash kernel also in bf16 at llama's and
+     4 SSD, 1 grouped expert product), a check that no device time is
+     under its bound, the grouped expert product at phase 2's shapes on a
+     dispatch's counts (bound: fp32 FFMA over the FLOPs of the occupied
+     rows; its tile waste, the rows its 64-row tiles compute over the
+     occupied ones, apart), at full occupancy and at balanced counts (each
+     expert the same share of its slots) against torch.bmm, with the
+     computed share at which the two take the same time; the flash kernel
+     also in bf16 at llama's and
      the lm-forward module's shapes (with the design's bound: P.V in two
      passes, 1.5x the FLOP), prefill and decode of both models, the
      llama3.2-3b forward on the flash kernel and with plain attention, and
@@ -103,14 +116,21 @@ the final `{"ok": true, ...}` line from printing:
      width: served as phases 3 and 5 (the kernel path, MoE layers on the
      gather route, the decode step's CUDA graph): exactly 31 decode, 1
      flash and 7 SSD launches (jamba) / 496 decode and 16 flash launches
-     (qwen3-moe) and no other kernel; the same run with every decode step
-     eager, its routes
+     (qwen3-moe), and 3 grouped expert products a MoE sub-layer in the
+     prefill (12 / 48; none in decode: a step's capacity is 8), and no
+     other kernel; one recorded `generate` (B=4, 2 new tokens) at each
+     of CELL_PREFILL_S: the prefill's grouped launches and its spans'
+     counters `moe.pairs`, `moe.pairs_dropped`, `moe.slots` and
+     `moe.rows_computed` (the shares of pairs dropped, of slots occupied
+     and of slots computed), the decode step's rows computed all its
+     slots; the same run with every decode step eager, its routes
      recorded, equal to it bit for bit (both under deterministic
      algorithms), and every step's logits within 1e-3 of a teacher-forced
      plain rerun (plain attention and SSD, the one-hot MoE oracle), with
      the (token, expert) routes that differ between the eager and the
      plain run printed per MoE sub-layer; the forward (1 flash
-     and 7 SSD / 16 flash launches, hidden state within 1e-3); one MoE
+     and 7 SSD / 16 flash launches, 12 / 48 grouped expert products,
+     hidden state within 1e-3); one MoE
      layer alone at T=4096 and T=4: the same experts and the same dropped
      pairs on both routes, outputs within 2e-5, aux within 1e-6; and their
      times (prefill, decode step, the MoE layer, a profile of one prefill
@@ -122,9 +142,9 @@ the final `{"ok": true, ...}` line from printing:
      the shared expert, 3 attention at 16 q heads a kv head; 12.8 B
      params, 51.2 GB in fp32) at full width, run after 10: as phases 9
      and 10, with exactly 3 x 31 = 93 decode launches (the g=16 instance),
-     3 flash launches (the prefill) and 9 SSD launches (8 groups) in the
-     served run, 3 flash and 9 SSD
-     in the forward, and routes pinned at ties of the biased score (gap
+     3 flash launches (the prefill), 9 SSD launches (8 groups) and 2 x 9 =
+     18 grouped expert products (relu²: two products) in the served run, 3
+     flash, 9 SSD and 18 grouped products in the forward, and routes pinned at ties of the biased score (gap
      < SIGMOID_TIE_GAP); its stage profile names the shared expert.
  11. whisper-large-v3 at full width and depth (32 encoder and 32 decoder
      layers, 1.607 B params, 6.43 GB in fp32; 1536 stub frames), and
@@ -177,7 +197,9 @@ the final `{"ok": true, ...}` line from printing:
      qwen3-moe-30b-a3b at full width cut to 4 layers, the forward on the
      sharded `moe_ep` (128 / world experts a rank) against the one-device
      gather route: hidden state 2e-5, the same routes and dropped pairs,
-     exactly 4 flash launches; (d) in this process, the `lm-forward` module
+     exactly 4 flash launches and no grouped expert product in the
+     sharded forward, 4 flash and 12 grouped products in the one-device
+     one (its capacity, 320, is above a row tile); (d) in this process, the `lm-forward` module
      at llama3.2-3b's full width through the daemon on a slot over every
      GPU (a replica and a stream on each, the rows split over them):
      exactly 28 x 4 x world flash launches and logits equal to phase 8
@@ -389,7 +411,7 @@ MAIN_PATH_INSTANCES = (
     "ssd_chunk_state_kernelIfLi64ELi16E",
     "ssd_chunk_scan_kernelIfLi64ELi16E", "ssd_cb_kernelIfLi16E",
     "ssd_state_pass_kernel", FLASH_MAIN, "flash_kernelIfLi64E",
-    "flash_kernelIfLi96E", FLASH_BF16)
+    "flash_kernelIfLi96E", FLASH_BF16, "expert_gemm_kernel")
 # the flash instances whose SASS must hold tensor-core instructions: HMMA
 # (mma.sync) in the fp32 kernel, HGMMA (wgmma) in the bf16 one
 FLASH_SASS = {FLASH_MAIN: "HMMA", "flash_kernelIfLi96E": "HMMA",
@@ -675,6 +697,7 @@ def phase_kernels(smoke: Smoke) -> None:
                     f"kernel {err_kernel:.3g}, plain fp32 {err_plain:.3g}")
         del q, k, v, exact
     _flash_bf16_cases(smoke, gen)
+    _expert_gemm_cases(smoke)
     for b, l, h, p, g, n, chunk in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = _ssd_inputs(gen, b, l, h, p, g, n, dtype)
@@ -753,13 +776,79 @@ def _flash_bf16_cases(smoke, gen) -> None:
                     f"kernel {err_kernel:.3g}, plain bf16 {err_plain:.3g}")
 
 
+def _expert_operands(arch, s, second, seed):
+    """The grouped expert product's operands at `arch`'s full-width expert
+    layer in a B=4 prefill of s tokens, on a real dispatch: normal tokens
+    routed by normal router weights over sqrt(D) (a sigmoid router's bias
+    normal x 0.02).  Returns x [E, cap, K] (zero past each count), w [E, K,
+    N] and the counts [E] int32: the gate and up products' K=D, N=F, or
+    with `second` the down product's K=F, N=D (x normal on the occupied
+    rows)."""
+    from repro_torch.models import moe, stack
+    f32 = torch.float32
+    cfg = _full_cfg(arch, "pallas")
+    spec, d = stack.moe_spec(cfg), cfg.d_model
+    f = spec.d_ff
+    e, t = spec.n_experts, BATCH * s
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    p = {"w_router": _randn(gen, (d, e), f32) / d ** 0.5,
+         "router_bias": 0.02 * _randn(gen, (e,), f32)}
+    xt = _randn(gen, (t, d), f32)
+    top_p, top_i, _ = moe.router_probs(p, xt, spec)
+    x, _, _, counts = moe._sorted_dispatch(xt, top_p, top_i,
+                                           moe._capacity(t, spec), spec)
+    del xt
+    if second:
+        rows = torch.arange(x.shape[1], device=DEVICE)
+        x = _randn(gen, (e, x.shape[1], f), f32) * (
+            rows[None, :, None] < counts[:, None, None])
+        d, f = f, d
+    return x, _randn(gen, (e, d, f), f32) / d ** 0.5, counts
+
+
+def _expert_gemm_cases(smoke) -> None:
+    """Phase 2's grouped expert product: both MoE prefill cells' expert
+    layers at each of CELL_PREFILL_S, both products, on a real dispatch's
+    counts, against torch.bmm (TF32 off: cuBLAS's fp32 kernel)."""
+    from repro_torch.kernels.expert_gemm import ops as eg
+    for arch in (QWEN_MOE, NEMOTRON):
+        for s in CELL_PREFILL_S:
+            for second in (False, True):
+                x, w, counts = _expert_operands(arch, s, second, 11)
+                e, cap, k = x.shape
+                want = torch.bmm(x, w)
+                nan = torch.full_like(want, float("nan"))
+                ptr = nan.data_ptr()
+                del nan
+                got = eg.expert_gemm(x, w, counts)
+                torch.cuda.synchronize()
+                rows = torch.arange(cap, device=DEVICE)
+                occ = (rows[None, :] < counts[:, None])[..., None]
+                diff = float((got - want).abs().masked_fill(~occ, 0).max())
+                scale = float(want.abs().max())
+                zeros = bool((got.masked_fill(occ, 0) == 0).all())
+                reused = got.data_ptr() == ptr
+                smoke.check(
+                    f"expert_gemm {arch} S={s} cap={cap} K={k} "
+                    f"N={w.shape[2]}: occupied rows vs torch.bmm (1e-6 of "
+                    f"its largest), exact zeros past the counts over NaN",
+                    diff <= 1e-6 * scale and zeros and reused
+                    and bool(torch.isfinite(got).all()),
+                    f"largest difference {diff:.3g} (of {scale:.3g}), "
+                    f"occupied {int(counts.sum())} of {e * cap} slots, "
+                    f"written over the NaN block {reused}")
+                del x, w, want, got, occ
+
+
 def _counters() -> dict:
     """The kernel wrappers, by kernel name; each counts its launches."""
     from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.expert_gemm import ops as eg
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ssd_scan import ops as ssd
     return {"decode_attention": da.decode_attention,
-            "flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd}
+            "flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd,
+            "expert_gemm": eg.expert_gemm}
 
 
 def _reset_launches() -> None:
@@ -772,9 +861,12 @@ def _read_launches() -> dict:
 
 
 def _check_launches(smoke, what, got, want) -> None:
-    for name in sorted(want):
-        smoke.check(f"{what}: {name} launches", got[name] == want[name],
-                    f"{got[name]} (want {want[name]})")
+    """Each kernel's launches in `got` against `want`; a kernel that `want`
+    leaves out must not launch."""
+    for name in sorted(got):
+        n = want.get(name, 0)
+        smoke.check(f"{what}: {name} launches", got[name] == n,
+                    f"{got[name]} (want {n})")
 
 
 def _full_cfg(arch, impl):
@@ -1093,8 +1185,10 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
     each other bit for bit (both under deterministic algorithms), and hold
     every step's logits to a teacher-forced plain rerun (plain attention
     and SSD, the one-hot MoE oracle) on the same weights, pinned to the
-    eager run's routes at ties; run its forward on both paths; hold one
-    MoE layer's gather route to the oracle at the prefill's and a decode
+    eager run's routes at ties; run its forward on both paths; read the
+    prefill's MoE counters in one recorded `generate` at each of
+    CELL_PREFILL_S (`_served_occupancy`); hold one MoE layer's gather
+    route to the oracle at the prefill's and a decode
     step's token counts; time prefill, decode and the MoE layer, and
     profile a prefill.  The params are freed before it returns."""
     from repro_torch.launch.serve import ServeRun, serve
@@ -1103,6 +1197,9 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
     cfg_k, cfg_p = _full_cfg(arch, "pallas"), _full_cfg(arch, "xla")
     n = _sublayer_counts(cfg_k)
     n_moe = n["moe"]
+    # the prefill's grouped expert products (its capacity is above a row
+    # tile; a decode step's, 8, keeps torch.bmm)
+    grouped = n_moe * (2 if cfg_k.moe.expert_act == "relu2" else 3)
     res.update(n_layers=cfg_k.n_layers, sublayers=n,
                params=api.param_count(cfg_k))
     print(f"   {arch} cut to {cfg_k.n_layers} layers: {n}, "
@@ -1125,7 +1222,8 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
     smoke.results.setdefault("launches", {})[f"serve {arch}"] = launches
     _check_launches(smoke, f"serve {arch}", launches, {
         "decode_attention": n["attn"] * (NEW - 1),
-        "flash_attention": n["attn"], "ssd_scan": n["mamba"]})
+        "flash_attention": n["attn"], "ssd_scan": n["mamba"],
+        "expert_gemm": grouped})
     tokens, logits = torch.from_numpy(out["tokens"]), out["logits"]
     smoke.check(f"serve {arch}: the graphed decode step equals the eager "
                 f"one bit for bit (tokens, every step's logits)",
@@ -1170,7 +1268,7 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
     smoke.results["launches"][f"forward {arch}"] = launches
     _check_launches(smoke, f"forward {arch}", launches, {
         "decode_attention": 0, "flash_attention": n["attn"],
-        "ssd_scan": n["mamba"]})
+        "ssd_scan": n["mamba"], "expert_gemm": grouped})
     err = float((h - h_plain).abs().max())
     fdiff = _check_routes(smoke, f"forward {arch}", routes, "forward",
                           "forward plain", n_moe, n_moe)
@@ -1186,6 +1284,8 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
                       "route_diff": fdiff}
     del h, h_plain, routes
 
+    res["occupancy"] = _served_occupancy(smoke, arch, cfg_k, params,
+                                         grouped)
     flush = torch.empty(64 * 2 ** 20, device=DEVICE)
     res["moe_layer"] = _moe_layer_alone(smoke, arch, cfg_k, params, flush)
     res["times"] = _serve_times(cfg_k, params, flush, (
@@ -1194,6 +1294,49 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
     del params, flush
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _served_occupancy(smoke, arch, cfg, params, grouped) -> dict:
+    """One recorded `generate` (B=4, a random prompt, 2 new tokens) at each
+    of CELL_PREFILL_S on the kernel path: `grouped` grouped launches, all
+    in the prefill, and the prefill's MoE counters (`moe.pairs`,
+    `moe.pairs_dropped`, `moe.slots`, `moe.rows_computed`): the shares of
+    the pairs dropped, of the slots occupied and of the slots the row
+    tiles compute (whole 64-row tiles, so above 1 where an expert is full
+    at a capacity that is no multiple of 64); a decode step computes
+    every slot."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.obs import spans
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    out = {}
+    for s in CELL_PREFILL_S:
+        prompt = torch.randint(0, cfg.vocab, (BATCH, s), generator=gen,
+                               device=DEVICE, dtype=torch.int32)
+        _reset_launches()
+        with spans.recorder(device=True) as rec:
+            generate(cfg, params, prompt, 2)
+        launches = _read_launches()["expert_gemm"]
+        pre = rec["counters"].get("prefill", {})
+        dec = rec["counters"].get("decode", {})
+        pairs, slots = pre.get("moe.pairs", 0), pre.get("moe.slots", 0)
+        occupied = pairs - pre.get("moe.pairs_dropped", 0)
+        computed = pre.get("moe.rows_computed", 0)
+        r = out[f"S={s}"] = {
+            "launches": launches, "pairs": pairs, "slots": slots,
+            "rows_computed": computed,
+            "dropped_share": 1 - occupied / max(pairs, 1),
+            "occupied_share": occupied / max(slots, 1),
+            "computed_share": computed / max(slots, 1),
+            "decode": {k: dec.get(k) for k in ("moe.slots",
+                                               "moe.rows_computed")}}
+        smoke.check(f"serve {arch} S={s}: {grouped} grouped launches, all "
+                    f"in the prefill; its rows computed cover the occupied "
+                    f"slots; a decode step computes every slot",
+                    launches == grouped and 0 < occupied <= computed
+                    and dec.get("moe.rows_computed") == dec.get("moe.slots"),
+                    json.dumps(r))
+        del prompt
+    return out
 
 
 def _moe_layer_alone(smoke, arch, cfg, params, flush) -> dict:
@@ -1224,7 +1367,8 @@ def _moe_layer_alone(smoke, arch, cfg, params, flush) -> dict:
             cap = moe._capacity(t, spec)
             disp, _ = moe._dense_dispatch(top_p, top_i, cap, spec, x.dtype)
             kept_dense = disp.sum(-1) > 0                      # [T, E]
-            _, src, w = moe._sorted_dispatch(xt, top_p2, top_i2, cap, spec)
+            _, src, w, _ = moe._sorted_dispatch(xt, top_p2, top_i2, cap,
+                                                spec)
             kept_ep = torch.zeros_like(kept_dense)
             ids = torch.arange(e, device=DEVICE)[:, None].expand_as(src)
             kept_ep[src[w > 0], ids[w > 0]] = True
@@ -2536,8 +2680,12 @@ def _dist_moe(rank, world, tmp) -> dict:
         batch = io.make_batch(cfg, io.smoke_cell("prefill", BATCH, PROMPT),
                               torch.Generator(device=DEVICE).manual_seed(seed))
         with torch.inference_mode():
+            if seed == MOE_SEEDS[0]:
+                _reset_launches()
             with routes.record("one"):
                 h1, _ = stack.forward(params, cfg, batch)
+            if seed == MOE_SEEDS[0]:
+                out["launches_one"] = _read_launches()
             bd = partition.distribute_tree(
                 batch, {"tokens": ("batch", None)}, mesh, rules)
             if seed == MOE_SEEDS[0]:
@@ -2741,6 +2889,12 @@ def phase_distribution(smoke: Smoke) -> None:
                             c["launches"],
                             {"decode_attention": 0, "flash_attention": MOE_CUT,
                              "ssd_scan": 0})
+            # the one-device forward runs the grouped expert product: its
+            # capacity (320) is above a row tile
+            _check_launches(smoke, f"{tag} (c) one-device moe forward",
+                            c["launches_one"],
+                            {"flash_attention": MOE_CUT,
+                             "expert_gemm": 3 * MOE_CUT})
             smoke.check(f"{tag} (c) hidden state vs the one-device gather "
                         f"route (2e-5), two prompts", c["hidden_ok"],
                         f"max_abs {c['hidden_max_abs']}")
@@ -3366,6 +3520,18 @@ def phase_times(smoke: Smoke) -> None:
         kernels.append(_ssd_entry(smoke, gen, flush, MAMBA))
         for arch in (JAMBA, NEMOTRON):
             kernels[-1][arch] = _ssd_entry(smoke, gen, flush, arch)
+        # expert_gemm: the grouped expert product at phase 2's shapes,
+        # qwen3-moe's gate and up products at S=2304 first, the rest nested
+        for arch in (QWEN_MOE, NEMOTRON):
+            for s in CELL_PREFILL_S:
+                for second in (False, True):
+                    entry = _expert_entry(smoke, flush, arch, s, second)
+                    if kernels[-1]["name"] != "expert_gemm":
+                        kernels.append(entry)
+                    else:
+                        sh = entry["shape"]
+                        kernels[-1][f"{arch} S={s} K={sh['k']} "
+                                    f"N={sh['n']}"] = entry
         for entry in kernels:       # every main-path run that launched it
             entry["launches_by_path"] = {
                 path: counts[entry["name"]] for path, counts in
@@ -3447,6 +3613,72 @@ def _ssd_entry(smoke, gen, flush, arch) -> dict:
         {"b": BATCH, "L": PROMPT, "h": h, "p": p, "g": g, "n": n,
          "chunk": chunk, "dtype": "float32"}, plain_reps=20,
         library_note="none: no single PyTorch call computes an SSD scan")
+
+
+# the shares of its slots each expert holds in the grouped product's
+# balanced sweep
+BALANCED_SHARES = (0.4, 0.5, 0.6, 0.7, 0.75, 0.8, 0.85, 0.9, 0.95, 1.0)
+
+
+def _expert_entry(smoke, flush, arch, s, second) -> dict:
+    """The grouped expert product's entry at `arch`'s expert layer in a
+    B=4 prefill of s tokens (`_expert_operands`), on the dispatch's
+    counts: the bound is fp32 FFMA over the FLOPs of the occupied rows,
+    2 K N sum(counts); `tile_waste` the rows the 64-row tiles compute over
+    the occupied ones.  `full`: the device time at every slot occupied;
+    `balanced`: at each of BALANCED_SHARES, every expert the same count;
+    each against torch.bmm's device time (which computes every slot
+    whatever the counts), and `break_even_computed_share`: the computed
+    share at which the two take the same time, interpolated between the
+    sweep's points (None where the sweep does not cross it)."""
+    from repro_torch.kernels.expert_gemm import ops as eg
+    x, w, counts = _expert_operands(arch, s, second, 12)
+    e, cap, k = x.shape
+    n = w.shape[2]
+    occupied, computed = int(counts.sum()), int(eg.computed_rows(counts))
+    # the weights once, x's occupied rows, every row of y
+    nbytes = 4 * (e * k * n + occupied * k + e * cap * n)
+    entry = _kernel_entry(
+        smoke, flush, "expert_gemm",
+        "src/repro_torch/kernels/expert_gemm/csrc/expert_gemm.cu",
+        "none: XLA's batched matmul over every slot "
+        "(src/repro/models/moe.py::_expert_ffn)",
+        _launches(smoke, f"serve {arch}", "expert_gemm"),
+        lambda: eg.expert_gemm(x, w, counts),
+        lambda: eg.expert_gemm_plain(x, w, counts),
+        lambda: torch.bmm(x, w), "expert_gemm_kernel", 1, nbytes,
+        2 * k * n * occupied,
+        {"arch": arch, "s": s, "e": e, "cap": cap, "k": k, "n": n,
+         "dtype": "float32"}, plain_reps=5)
+    library = entry["library_device_ms"]
+
+    def timed(c):
+        ms = device_time(lambda: eg.expert_gemm(x, w, c), flush)["ms"]
+        return {"occupied_share": int(c.sum()) / (e * cap),
+                "computed_share": int(eg.computed_rows(c)) / (e * cap),
+                "device_ms": ms, "vs_library": ms / library,
+                "tflop_per_s": 2 * k * n * int(c.sum()) / ms / 1e9}
+    entry.update(occupied_rows=occupied, computed_rows=computed,
+                 slots=e * cap, tile_waste=computed / occupied,
+                 tflop_per_s=2 * k * n * occupied / entry["device_ms"] / 1e9,
+                 vs_library=entry["device_ms"] / library,
+                 full=timed(torch.full_like(counts, cap)))
+    entry["balanced"] = [
+        timed(torch.full_like(counts, round(share * cap)))
+        for share in BALANCED_SHARES]
+    pts = sorted((p["computed_share"], p["vs_library"])
+                 for p in entry["balanced"])
+    entry["break_even_computed_share"] = next(
+        (s0 + (1 - r0) * (s1 - s0) / (r1 - r0)
+         for (s0, r0), (s1, r1) in zip(pts, pts[1:]) if r0 < 1 <= r1), None)
+    print(f"   expert_gemm {arch} S={s} cap={cap} K={k} N={n}: "
+          f"{entry['vs_library']:.3f}x torch.bmm on the dispatch's counts "
+          f"({occupied / (e * cap):.3f} occupied, tile waste "
+          f"{entry['tile_waste']:.3f}), {entry['full']['vs_library']:.3f}x "
+          f"at full occupancy, break-even at "
+          f"{entry['break_even_computed_share']} computed", flush=True)
+    del x, w
+    return entry
 
 
 def _flash_entry(smoke, gen, flush, hq, hkv, hd, scale, dtype,

@@ -32,6 +32,7 @@ SOURCES = {
     "flash_attention":
         _KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
     "ssd_scan": _KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",
+    "expert_gemm": _KERNELS / "expert_gemm" / "csrc" / "expert_gemm.cu",
 }
 INCLUDE = _KERNELS / "csrc"
 _LOCK = threading.RLock()

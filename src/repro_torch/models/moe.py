@@ -19,6 +19,11 @@ Mirrors `repro/models/moe.py`.  Two routes with identical math:
   the rank's batch shard are the same on every rank of the ep axis, and
   the combine is `all_reduce`d over it (Megatron's pair: the gradient of
   the shared inputs is summed over the ep ranks, the combine's is not).
+  Each expert's kept pairs fill its slots from the front, so on one
+  CUDA device, in fp32, with no gradient to take and at a capacity of at least
+  one row tile (a prefill), its products run grouped
+  (`kernels/expert_gemm`): only the row tiles that hold an occupied slot
+  are computed, with torch.bmm's arithmetic on them.
 
 Routing: softmax top-k with normalised combine weights and a Switch-style
 load-balancing aux loss, capacity-limited with token dropping.  Ties in
@@ -42,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import Replicate, Shard
 
+from repro_torch.kernels.expert_gemm import ops as eg_ops
 from repro_torch.obs import spans
 from repro_torch.sharding import partition
 
@@ -96,17 +102,43 @@ def router_probs(params, x: torch.Tensor, spec: MoESpec):
     return top_p, top_i, aux
 
 
-def _expert_ffn(params, x, spec: MoESpec):
+def _expert_ffn(params, x, spec: MoESpec, counts=None):
     """Batched per-expert FFN: x [E, C, D]; w1 (/w3) [E, D, F]; w2 [E, F,
-    D].  SwiGLU, or with `expert_act="relu2"` W2 relu(W1 x)^2."""
+    D].  SwiGLU, or with `expert_act="relu2"` W2 relu(W1 x)^2.  With
+    `counts` ([E] int32: each expert's occupied slots, a prefix of its C)
+    each product is `expert_gemm`'s, which computes only the row tiles
+    that hold an occupied slot and gives 0 past the count."""
+    if counts is None:
+        mm = torch.bmm
+    else:
+        def mm(a, b):
+            return eg_ops.expert_gemm(a, b, counts)
     w1, w2 = params["w1"], params["w2"]
-    gate = torch.bmm(x, w1.to(x.dtype))
+    gate = mm(x, w1.to(x.dtype))
     if spec.expert_act == "relu2":
         h = torch.relu(gate).square()
     else:
-        up = torch.bmm(x, params["w3"].to(x.dtype))
+        up = mm(x, params["w3"].to(x.dtype))
         h = F.silu(gate.float()).to(x.dtype) * up
-    return torch.bmm(h, w2.to(x.dtype))
+    return mm(h, w2.to(x.dtype))
+
+
+# the devices on which `expert_gemm` launches its kernel; on the CPU its
+# plain version would do torch.bmm's work and more
+_GROUPED_DEVICES = ("cuda",)
+
+
+def _grouped(params, xe, mesh) -> bool:
+    """Whether the expert product runs over the occupied row tiles only
+    (`expert_gemm`): on one CUDA device, in fp32, with no gradient to
+    take, and at a capacity of at least one row tile (a prefill; a decode
+    step's capacity of 8 keeps torch.bmm)."""
+    ws = [params[k] for k in ("w1", "w2", "w3") if k in params]
+    return (mesh is None and xe.device.type in _GROUPED_DEVICES
+            and xe.shape[1] >= eg_ops.ROW_TILE
+            and xe.dtype == torch.float32
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in (xe, *ws))))
 
 
 def _capacity(n_tokens: int, spec: MoESpec) -> int:
@@ -169,17 +201,30 @@ def _experts_hit(weight):
     return torch.count_nonzero(weight.amax(1))
 
 
+def _rows_computed(weight, counts):
+    """The rows the expert products compute (weight [E_loc, C]): every
+    slot on torch.bmm's route (counts None), each expert's occupied slots
+    rounded up to whole row tiles on the grouped one; a count for
+    `repro_torch.obs.spans`."""
+    if counts is None:
+        return torch.full((), weight.numel(), dtype=torch.int64,
+                          device=weight.device)
+    return eg_ops.computed_rows(counts)
+
+
 def _sorted_dispatch(xt, top_p, top_i, cap: int, spec: MoESpec,
                      e_lo: int = 0, e_loc: int | None = None):
     """Gather the tokens of the local experts [e_lo, e_lo + e_loc) into
     their `cap` slots (default: every expert).
 
     xt: [T, D].  Returns (xe [E_loc, C, D], src_idx [E_loc, C], weight
-    [E_loc, C]) where src_idx rows index into xt (0 and weight 0 where a
-    slot is empty).  The reference's `_sorted_dispatch_local`.  The
-    stable sort by expert id (non-local pairs pushed to the end) keeps
-    each expert's queue in token-major (token, k) order, so the pairs
-    past `cap` are those `moe_dense` drops.
+    [E_loc, C], counts [E_loc] int32) where src_idx rows index into xt (0
+    and weight 0 where a slot is empty) and counts are each expert's kept
+    pairs, min(its queue, cap), which fill its slots [0, count).  The
+    reference's `_sorted_dispatch_local`.  The stable sort by expert id
+    (non-local pairs pushed to the end) keeps each expert's queue in
+    token-major (token, k) order, so the pairs past `cap` are those
+    `moe_dense` drops.
     """
     t = xt.shape[0]
     e_loc = spec.n_experts if e_loc is None else e_loc
@@ -206,7 +251,10 @@ def _sorted_dispatch(xt, top_p, top_i, cap: int, spec: MoESpec,
     weight = weight[:-1].reshape(e_loc, cap)
     xe = xt[src_idx.reshape(-1)].reshape(e_loc, cap, -1)
     xe = xe * (weight[..., None] > 0).to(xe.dtype)
-    return xe, src_idx, weight
+    # each expert's queue starts where the sorted keys first reach it
+    starts = torch.searchsorted(key_s, torch.arange(e_loc + 1, device=dev))
+    counts = (starts[1:] - starts[:-1]).clamp(max=cap).to(torch.int32)
+    return xe, src_idx, weight, counts
 
 
 def ep_placements(placements, mesh, spec: MoESpec, expert_dim: int) -> list:
@@ -240,8 +288,8 @@ def moe_ep(params, x: torch.Tensor, spec: MoESpec, mesh=None,
     spans.count("moe.pairs", t * spec.top_k)
     with spans.span("moe.dispatch"):
         if mesh is None:
-            xe, src_idx, weight = _sorted_dispatch(xt, top_p, top_i, cap,
-                                                   spec)
+            xe, src_idx, weight, counts = _sorted_dispatch(
+                xt, top_p, top_i, cap, spec)
         else:
             ep = spec.ep_axis
             if ep in partition.flat_axes(batch_axes):
@@ -253,15 +301,20 @@ def moe_ep(params, x: torch.Tensor, spec: MoESpec, mesh=None,
             assert params["w1"].shape[0] == e_loc, (params["w1"].shape,
                                                     e_loc)
             e_lo = partition.axis_index(mesh, ep) * e_loc
-            xe, src_idx, weight = _sorted_dispatch(
+            xe, src_idx, weight, counts = _sorted_dispatch(
                 partition.copy_to_group(xt, mesh, ep),
                 partition.copy_to_group(top_p, mesh, ep), top_i, cap, spec,
                 e_lo, e_loc)
     # the experts the product reads, and those a kept pair was routed to
     spans.count("moe.experts_read", weight.shape[0])
     spans.count_device("moe.experts_hit", _experts_hit, weight)
+    # the slots the dispatch fills, and the rows the product computes
+    if not _grouped(params, xe, mesh):
+        counts = None
+    spans.count("moe.slots", weight.numel())
+    spans.count_device("moe.rows_computed", _rows_computed, weight, counts)
     with spans.span("moe.experts"):
-        ye = _expert_ffn(params, xe, spec)
+        ye = _expert_ffn(params, xe, spec, counts)
     with spans.span("moe.combine"):
         ye = ye * weight[..., None].to(ye.dtype)
         yt = torch.zeros((t, d), dtype=ye.dtype, device=x.device)

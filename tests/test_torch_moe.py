@@ -31,10 +31,22 @@ from repro.models import api as ref_api, moe as ref_moe  # noqa: E402
 from repro.models import stack as ref_stack  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from torch_ref_init import ref_init  # noqa: E402
+from repro_torch.kernels.expert_gemm import ops as eg_ops  # noqa: E402
 from repro_torch.launch.serve import ServeRun, generate, serve  # noqa: E402
 from repro_torch.models import api, convert, moe, stack  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture(autouse=True)
+def grouped_on_cpu(monkeypatch):
+    """`moe_ep` takes the grouped expert product on the CPU as on a card
+    (the kernel's plain version in the kernel's place), so that the layer
+    cases whose capacity reaches a row tile hold that route's dispatch
+    counts and masking to the reference."""
+    monkeypatch.setattr(moe, "_GROUPED_DEVICES", ("cuda", "cpu"))
+
+
 ARCHS = ["qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"]
 # (attn_impl, moe impl) of the port; "pallas" also sets ssd_impl
 IMPLS = [("xla", "dense"), ("xla", "ep"), ("pallas", "dense"),
@@ -83,11 +95,16 @@ def _j(tree):
 
 # (seed, T, D, E, k, F, capacity_factor): an ordinary case, qwen3-moe's
 # 128-expert top-8 router, and T=256, E=4, k=2 at capacity_factor 0.5,
-# where a quarter of the (token, k) pairs and more are dropped
+# where a quarter of the (token, k) pairs and more are dropped; then two
+# whose capacity is at least the grouped expert product's row tile, so
+# that `moe_ep` runs `expert_gemm` (its plain version on the CPU: the
+# file's `grouped_on_cpu` lets the route run there as on a card)
 LAYER_CASES = {
     "e8_k2": (1, 64, 16, 8, 2, 12, 1.25),
     "e128_k8": (2, 96, 32, 128, 8, 8, 1.25),
     "drops": (3, 256, 16, 4, 2, 12, 0.5),
+    "grouped_e8_k2": (7, 512, 16, 8, 2, 12, 1.25),
+    "grouped_e16_k4_drops": (8, 512, 16, 16, 4, 12, 0.75),
 }
 
 
@@ -152,7 +169,8 @@ def _kept_gather(src_idx, weight):
     return set(zip(np.asarray(src_idx)[keep].tolist(), e[keep].tolist()))
 
 
-LAYER_ROUTE_CASES = ["e8_k2", "e128_k8", "drops", "ties"]
+LAYER_ROUTE_CASES = ["e8_k2", "e128_k8", "drops", "ties", "grouped_e8_k2",
+                     "grouped_e16_k4_drops"]
 
 
 def _layer_case(case):
@@ -180,7 +198,8 @@ def test_dispatch_drops_the_reference_pairs(case):
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(top_i))
     assert got_cap == cap and kept == want
     tp, ti, _ = moe.router_probs(_t(p), torch.from_numpy(xt), spec)
-    _, src, w = moe._sorted_dispatch(torch.from_numpy(xt), tp, ti, cap, spec)
+    _, src, w, _ = moe._sorted_dispatch(torch.from_numpy(xt), tp, ti, cap,
+                                        spec)
     np.testing.assert_array_equal(src.numpy(), np.asarray(ref_src))
     np.testing.assert_allclose(w.numpy(), np.asarray(ref_w), **TOL)
     assert _kept_gather(src.numpy(), w.numpy()) == want
@@ -212,6 +231,24 @@ def test_gather_route_matches_reference_ep_on_one_device(case):
     got_y, got_aux = moe.moe_ep(_t(p), torch.from_numpy(x), spec)
     np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), **TOL)
     np.testing.assert_allclose(got_aux.item(), float(want_aux), **TOL)
+
+
+@pytest.mark.parametrize("case", ["drops", "grouped_e8_k2",
+                                  "grouped_e16_k4_drops"])
+def test_gather_route_runs_the_grouped_product_at_a_row_tile(case,
+                                                             monkeypatch):
+    """At a capacity of a row tile or more the gather route's three expert
+    products are `expert_gemm`'s, which the cases above hold to the
+    reference."""
+    (_, spec), p, x = _layer_case(case)
+    assert moe._capacity(x.shape[0] * x.shape[1], spec) >= \
+        eg_ops.ROW_TILE
+    calls = []
+    real = eg_ops.expert_gemm
+    monkeypatch.setattr(moe.eg_ops, "expert_gemm",
+                        lambda *a: calls.append(1) or real(*a))
+    moe.moe_ep(_t(p), torch.from_numpy(x), spec)
+    assert len(calls) == 3
 
 
 def test_routes_agree_to_rounding():
