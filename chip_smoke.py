@@ -11,9 +11,9 @@ the final `{"ok": true, ...}` line from printing:
      registers and CTAs an SM of the MHA decode instances (G=1 at hd=64
      and hd=96); check that no bf16 instance of the mma.sync flash kernel
      is built (bf16 has one route, the wgmma kernel); count the
-     tensor-core instructions of the hd=128 and hd=96 flash kernels where
-     the toolkit has cuobjdump: HMMA (mma.sync) in the fp32 ones, HGMMA
-     (wgmma) in the bf16 ones;
+     tensor-core instructions of the hd=128 and hd=96 flash kernels (and
+     of the windowed fp32 one at hd=128) where the toolkit has cuobjdump:
+     HMMA (mma.sync) in the fp32 ones, HGMMA (wgmma) in the bf16 ones;
   2. hold each kernel against its plain PyTorch version on the card: the
      reference test cases plus the full-width llama3.2-3b and mamba2-780m
      shapes, each in fp32 (tolerance 2e-5; SSD state 1e-4) and bf16 (2e-2;
@@ -44,7 +44,12 @@ the final `{"ok": true, ...}` line from printing:
      (capacities 720, 1280 / 544, 960), both products, on the counts of a
      real dispatch: the occupied rows within 1e-6 of torch.bmm's largest
      value (0 expected) and every row past a count an exact 0, written
-     into memory that held NaN;
+     into memory that held NaN; the windowed fp32 flash kernel
+     (`flash_window_kernel`, 32 q on 4 kv heads of 128: trinity-mini's)
+     against the plain version with the band, one batch row and kv head
+     at a time (WINDOW_CASES: the trinity.prefill cell's B=2, S 9088 and
+     16384, W=2048; S below W, S and W off the 64-key tile, W = 1), and a
+     window at least S long equal to the causal kernel bit for bit;
   3. serve llama3.2-3b at full width (B=4, 1024-token prompt, 32 new
      tokens, attn_impl="pallas"): the decode kernel must launch exactly
      28 layers x 31 steps = 868 times, the flash kernel 28 times (the
@@ -146,6 +151,16 @@ the final `{"ok": true, ...}` line from printing:
      18 grouped expert products (relu²: two products) in the served run, 3
      flash, 9 SSD and 18 grouped products in the forward, and routes pinned at ties of the biased score (gap
      < SIGMOID_TIE_GAP); its stage profile names the shared expert.
+ 18. trinity-mini cut to its first 16 layers (ddeF eeeF eeeF eeeF: 12
+     sliding-window layers, 2 of them dense, and 4 full ones, 14 MoE with
+     the sigmoid router and a shared SwiGLU expert; 12.70 B params, 50.8
+     GB in fp32) at full width, run after 17: as phase 17, with 16 x 31 =
+     496 decode launches (the G=8 instance over the rings), 12
+     `flash_window_kernel` and 4 causal flash launches (the prefill) and
+     3 x 14 = 42 grouped expert products in the served run and in the
+     forward; each recorded prefill at CELL_PREFILL_S (S=4096: the band
+     narrower than the prefix) launches the windowed kernel 12 times and
+     the causal one 4 times, the counts set to 0 just before it.
  11. whisper-large-v3 at full width and depth (32 encoder and 32 decoder
      layers, 1.607 B params, 6.43 GB in fp32; 1536 stub frames), and
  12. phi-3-vision-4.2b at full width and depth (32 layers, 3.822 B params,
@@ -239,7 +254,7 @@ the final `{"ok": true, ...}` line from printing:
      and `elastic_train --m100` (~100M params, B=4, S=256): steps/s,
      peak GB, restarts and switches.  Their launches are in the
      `kernels` line (`examples_launches`).
-Each of phases 3-6 and 8-17 sets every launch count to 0 just before it
+Each of phases 3-6 and 8-18 sets every launch count to 0 just before it
 drives a path and reads the counts just after.  Phase 7 runs last, in a
 fresh process (`python3 chip_smoke.py --times DIR`, the main paths'
 launch counts passed in DIR): torch.profiler drops kernel records in a
@@ -250,7 +265,10 @@ the nemotronh.prefill cell's cache (4112 rows, 2305 and 4097 valid), the
 flash kernel at their forward shapes (and in bf16 at the lm-forward
 module's, B=8, S=64; in fp32 at qwen3-moe's and nemotron-h's heads at the
 benchmark cells' prefills, B=4, S=2304 and 4096) and the SSD kernel at
-jamba's and nemotron-h's shapes.  Then the `kernels` JSON
+jamba's and nemotron-h's shapes, and (entry `flash_window`) the windowed
+flash kernel at the trinity.prefill cell's shapes (B=2, S 9088 and 16384,
+W=2048; bound: 3xTF32 over the band's FLOPs; library: SDPA with the band
+as a boolean mask; its launches phase 18's).  Then the `kernels` JSON
 line, the card line and the final line.
 
 It imports nothing of jax or of the reference package `repro`.
@@ -300,14 +318,17 @@ LLAMA, MAMBA = "llama3.2-3b", "mamba2-780m"
 JAMBA, QWEN_MOE = "jamba-v0.1-52b", "qwen3-moe-30b-a3b"
 WHISPER, PHI3V = "whisper-large-v3", "phi-3-vision-4.2b"
 NEMOTRON = "nemotron-3-nano-30b-a3b"
+TRINITY = "trinity-mini"
 LAYERS = {LLAMA: 28, MAMBA: 48, WHISPER: 32, PHI3V: 32}
 # full width in fp32 does not fit one 80 GB card, so these three are cut
 # in depth, never in width: jamba to one super-block of 8 sub-layers
 # (13.27 B params, every sub-layer kind of its plan), qwen3-moe to 16 of
 # its 48 layers (10.59 B params), nemotron-h to its first 21 blocks
 # (MEMEM*E three times: 9 Mamba2, 9 MoE, 3 attention; 12.8 B params), the
-# depth the benchmark's nemotronh.prefill cell serves
-DEPTH_CUT = {JAMBA: 8, QWEN_MOE: 16, NEMOTRON: 21}
+# depth the benchmark's nemotronh.prefill cell serves, trinity-mini to its
+# first 16 (12 window and 4 full layers; 12.70 B params), the depth of its
+# trinity.prefill cell
+DEPTH_CUT = {JAMBA: 8, QWEN_MOE: 16, NEMOTRON: 21, TRINITY: 16}
 BATCH, PROMPT, NEW = 4, 1024, 32
 # the prefill lengths phase 7 times the flash kernel at for the benchmark's
 # qwen3moe.prefill and nemotronh.prefill cells: a middle length of their
@@ -367,6 +388,14 @@ FLASH_CASES = [
     (4, 1000, 1000, 32, 32, 96), (4, 1040, 1040, 32, 32, 96),
     (1, 1024, 1024, 32, 32, 96),
 ]
+# (b, s, window) of the windowed fp32 flash kernel at trinity-mini's heads
+# (32 q on 4 kv of 128): the trinity.prefill cell's prefills, then S below
+# W, S and W off the 64-key tile (the band's lower edge inside a tile),
+# W = 1 (each query its own key) and W above S
+WINDOW_HEADS = (32, 4, 128)
+WINDOW_CASES = [(2, 9088, 2048), (2, 16384, 2048), (1, 2047, 2048),
+                (1, 4096, 100), (1, 1000, 65), (1, 130, 64), (1, 65, 1),
+                (1, 1, 1), (1, 200, 300)]
 # inputs x3 against fp64: (hq, hkv, hd) of llama's and phi-3-vision's
 # forwards
 PEAKY_CASES = [(24, 8, 128), (32, 32, 96)]
@@ -398,8 +427,10 @@ SSD_CASES = [
 # (whisper) and hd=96 (phi-3-vision); SSD at P=64, N=128 (mamba2-780m,
 # nemotron-h) and N=16 (jamba), with their C.B^T kernels;
 # flash at hd=128, 64 and 96 in fp32 (mma.sync) and at hd=128 in bf16
-# (wgmma; the lm-forward module's)
+# (wgmma; the lm-forward module's), and the windowed fp32 one at hd=128
+# (trinity-mini's)
 FLASH_MAIN = "flash_kernelIfLi128E"
+FLASH_WINDOW = "flash_window_kernelIfLi128E"
 FLASH_BF16 = "flash_wgmma_kernelILi128E"
 DECODE_G1 = ("decode_kernelIfLi64ELi1E", "decode_kernelIfLi96ELi1E")
 DECODE_G16 = "decode_kernelIfLi128ELi8ELi2E"
@@ -411,11 +442,12 @@ MAIN_PATH_INSTANCES = (
     "ssd_chunk_state_kernelIfLi64ELi16E",
     "ssd_chunk_scan_kernelIfLi64ELi16E", "ssd_cb_kernelIfLi16E",
     "ssd_state_pass_kernel", FLASH_MAIN, "flash_kernelIfLi64E",
-    "flash_kernelIfLi96E", FLASH_BF16, "expert_gemm_kernel")
+    "flash_kernelIfLi96E", FLASH_BF16, FLASH_WINDOW, "expert_gemm_kernel")
 # the flash instances whose SASS must hold tensor-core instructions: HMMA
 # (mma.sync) in the fp32 kernel, HGMMA (wgmma) in the bf16 one
 FLASH_SASS = {FLASH_MAIN: "HMMA", "flash_kernelIfLi96E": "HMMA",
-              FLASH_BF16: "HGMMA", "flash_wgmma_kernelILi96E": "HGMMA"}
+              FLASH_WINDOW: "HMMA", FLASH_BF16: "HGMMA",
+              "flash_wgmma_kernelILi96E": "HGMMA"}
 # the bf16 flash kernel's registers at launch, which its setmaxnreg moves
 # assume (flash_attention.cu, Wg::kLaunchRegs: two CTAs of 256 threads an
 # SM)
@@ -697,6 +729,7 @@ def phase_kernels(smoke: Smoke) -> None:
                     f"kernel {err_kernel:.3g}, plain fp32 {err_plain:.3g}")
         del q, k, v, exact
     _flash_bf16_cases(smoke, gen)
+    _flash_window_cases(smoke, gen)
     _expert_gemm_cases(smoke)
     for b, l, h, p, g, n, chunk in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -734,6 +767,51 @@ def phase_kernels(smoke: Smoke) -> None:
     err_s, ok_s = err_within(s2, s_full, 1e-4)
     smoke.check("ssd_scan continuation 512+512 vs 1024 (1e-4)", ok_y and ok_s,
                 f"max_abs_err y={err_y:.3g} state={err_s:.3g}")
+
+
+def _window_plain(q, k, v, window):
+    """The plain version of the windowed kernel, one batch row and kv head
+    at a time: its scores are [1, g, S, S] (B=2, S=16384 whole would take
+    69 GB)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    g = q.shape[2] // k.shape[2]
+    out = torch.empty_like(q)
+    for b in range(q.shape[0]):
+        for h in range(k.shape[2]):
+            out[b:b + 1, :, h * g:(h + 1) * g] = fa.flash_attention_plain(
+                q[b:b + 1, :, h * g:(h + 1) * g], k[b:b + 1, :, h:h + 1],
+                v[b:b + 1, :, h:h + 1], window=window)
+    return out
+
+
+def _window_inputs(gen, b, s):
+    hq, hkv, hd = WINDOW_HEADS
+    return (_randn(gen, (b, s, hq, hd), torch.float32),
+            _randn(gen, (b, s, hkv, hd), torch.float32),
+            _randn(gen, (b, s, hkv, hd), torch.float32))
+
+
+def _flash_window_cases(smoke, gen) -> None:
+    """Phase 2's cases of the windowed fp32 flash kernel: WINDOW_CASES
+    against the plain version with the band, and a window of S keys equal
+    to the causal kernel bit for bit."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    hq, hkv, hd = WINDOW_HEADS
+    for b, s, w in WINDOW_CASES:
+        q, k, v = _window_inputs(gen, b, s)
+        got = fa.flash_attention(q, k, v, window=w)
+        err, ok = err_within(got, _window_plain(q, k, v, w),
+                             TOL[torch.float32])
+        smoke.check(f"flash_window b={b} s={s} window={w} hq={hq} "
+                    f"hkv={hkv} hd={hd} float32", ok,
+                    f"max_abs_err={err:.3g}")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    q, k, v = _window_inputs(gen, 2, 1000)
+    smoke.check("flash_window: a window of S keys equals the causal "
+                "kernel bit for bit (b=2 s=1000)",
+                torch.equal(fa.flash_attention(q, k, v, window=1000),
+                            fa.flash_attention(q, k, v)))
 
 
 def _flash_bf16_cases(smoke, gen) -> None:
@@ -854,10 +932,16 @@ def _counters() -> dict:
 def _reset_launches() -> None:
     for fn in _counters().values():
         fn.launches = 0
+    _counters()["flash_attention"].window_launches = 0
 
 
 def _read_launches() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    """Each kernel's launches; the flash wrapper's split into the causal
+    kernel's (`flash_attention`) and the windowed one's (`flash_window`)."""
+    out = {name: fn.launches for name, fn in _counters().items()}
+    out["flash_window"] = _counters()["flash_attention"].window_launches
+    out["flash_attention"] -= out["flash_window"]
+    return out
 
 
 def _check_launches(smoke, what, got, want) -> None:
@@ -1172,13 +1256,15 @@ def _check_routes(smoke, what, routes, a, b, n_moe, n_calls) -> dict:
 
 
 def _sublayer_counts(cfg) -> dict:
+    """Sub-layers by kind: full attention, sliding-window attention
+    ("swa"), Mamba2 and MoE."""
     n_groups, plan = cfg.layer_plan()
     return {kind: n_groups * sum(1 for item in plan if kind in item)
-            for kind in ("attn", "mamba", "moe")}
+            for kind in ("attn", "swa", "mamba", "moe")}
 
 
 def phase_moe_model(smoke: Smoke, arch: str) -> None:
-    """Phases 9, 10 and 17: a DEPTH_CUT model at full width in fp32.  Serve it
+    """Phases 9, 10, 17 and 18: a DEPTH_CUT model at full width in fp32.  Serve it
     (B=4, a 1024-token prompt, 32 new tokens, greedy, the kernel path with
     the gather MoE route, the decode step's CUDA graph), serve it again
     with every decode step eager to record its routes, hold the two to
@@ -1221,9 +1307,9 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
             eager = serve(run)
     smoke.results.setdefault("launches", {})[f"serve {arch}"] = launches
     _check_launches(smoke, f"serve {arch}", launches, {
-        "decode_attention": n["attn"] * (NEW - 1),
-        "flash_attention": n["attn"], "ssd_scan": n["mamba"],
-        "expert_gemm": grouped})
+        "decode_attention": (n["attn"] + n["swa"]) * (NEW - 1),
+        "flash_attention": n["attn"], "flash_window": n["swa"],
+        "ssd_scan": n["mamba"], "expert_gemm": grouped})
     tokens, logits = torch.from_numpy(out["tokens"]), out["logits"]
     smoke.check(f"serve {arch}: the graphed decode step equals the eager "
                 f"one bit for bit (tokens, every step's logits)",
@@ -1268,7 +1354,8 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
     smoke.results["launches"][f"forward {arch}"] = launches
     _check_launches(smoke, f"forward {arch}", launches, {
         "decode_attention": 0, "flash_attention": n["attn"],
-        "ssd_scan": n["mamba"], "expert_gemm": grouped})
+        "flash_window": n["swa"], "ssd_scan": n["mamba"],
+        "expert_gemm": grouped})
     err = float((h - h_plain).abs().max())
     fdiff = _check_routes(smoke, f"forward {arch}", routes, "forward",
                           "forward plain", n_moe, n_moe)
@@ -1285,7 +1372,7 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
     del h, h_plain, routes
 
     res["occupancy"] = _served_occupancy(smoke, arch, cfg_k, params,
-                                         grouped)
+                                         grouped, n)
     flush = torch.empty(64 * 2 ** 20, device=DEVICE)
     res["moe_layer"] = _moe_layer_alone(smoke, arch, cfg_k, params, flush)
     res["times"] = _serve_times(cfg_k, params, flush, (
@@ -1296,9 +1383,12 @@ def phase_moe_model(smoke: Smoke, arch: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _served_occupancy(smoke, arch, cfg, params, grouped) -> dict:
+def _served_occupancy(smoke, arch, cfg, params, grouped, n) -> dict:
     """One recorded `generate` (B=4, a random prompt, 2 new tokens) at each
-    of CELL_PREFILL_S on the kernel path: `grouped` grouped launches, all
+    of CELL_PREFILL_S on the kernel path, the launch counts set to 0 just
+    before it: a causal flash launch a full attention layer and a windowed
+    one a window layer (`n`, `_sublayer_counts`), kept under
+    "prefill <arch> S=<s>"; `grouped` grouped launches, all
     in the prefill, and the prefill's MoE counters (`moe.pairs`,
     `moe.pairs_dropped`, `moe.slots`, `moe.rows_computed`): the shares of
     the pairs dropped, of the slots occupied and of the slots the row
@@ -1315,7 +1405,14 @@ def _served_occupancy(smoke, arch, cfg, params, grouped) -> dict:
         _reset_launches()
         with spans.recorder(device=True) as rec:
             generate(cfg, params, prompt, 2)
-        launches = _read_launches()["expert_gemm"]
+        counts = _read_launches()
+        smoke.results.setdefault("launches", {})[
+            f"prefill {arch} S={s}"] = counts
+        smoke.check(f"serve {arch} S={s}: {n['attn']} causal and {n['swa']}"
+                    f" windowed flash launches", counts["flash_attention"]
+                    == n["attn"] and counts["flash_window"] == n["swa"],
+                    f"{counts['flash_attention']}, {counts['flash_window']}")
+        launches = counts["expert_gemm"]
         pre = rec["counters"].get("prefill", {})
         dec = rec["counters"].get("decode", {})
         pairs, slots = pre.get("moe.pairs", 0), pre.get("moe.slots", 0)
@@ -3515,6 +3612,15 @@ def phase_times(smoke: Smoke) -> None:
                     smoke, gen, flush, BATCH, s, c.n_heads, c.n_kv_heads,
                     c.head_dim, c.head_dim ** -0.5, f32,
                     _launches(smoke, f"serve {arch}", "flash_attention"))
+        # the windowed one at the trinity.prefill cell's prefills (B=2, a
+        # middle length of its mix and its longest, W=2048), launched once
+        # a window layer of each prefill
+        for b, s, w in WINDOW_CASES[:2]:
+            entry = _flash_window_entry(smoke, gen, flush, b, s, w)
+            if kernels[-1]["name"] != "flash_window":
+                kernels.append(entry)
+            else:
+                kernels[-1][f"S={s}"] = entry
         # ssd_scan: one layer of the full-width mamba2-780m prefill, and
         # (nested) of jamba's and of nemotron-h's (8 B/C groups)
         kernels.append(_ssd_entry(smoke, gen, flush, MAMBA))
@@ -3720,6 +3826,42 @@ def _flash_shape_entry(smoke, gen, flush, b, s, hq, hkv, hd, scale, dtype,
         {"b": b, "s": s, "hq": hq, "hkv": hkv, "hd": hd,
          "dtype": str(dtype).removeprefix("torch.")}, dtype=dtype,
         passes=1.5 if bf16 else 1.0)
+
+
+def _flash_window_entry(smoke, gen, flush, b, s, w) -> dict:
+    """The windowed fp32 flash kernel's entry at [b, s] with trinity-mini's
+    heads and a window of w keys.  Operations: the band's, 4 hq hd
+    sum_i min(i + 1, w) a batch row, at 3xTF32; bytes: q, k, v and the
+    output once.  The plain version runs a batch row and kv head at a time
+    (`_window_plain`); the library call is SDPA with the band as a boolean
+    mask over kv heads repeated to the q heads.  Its launches: phase 18's
+    recorded prefill at the longest of CELL_PREFILL_S, one a window
+    layer."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    hq, hkv, hd = WINDOW_HEADS
+    q, k, v = _window_inputs(gen, b, s)
+    m = min(s, w)
+    band = m * (m + 1) // 2 + (s - m) * w     # sum_i min(i + 1, w)
+    qt, kt, vt = (t.transpose(1, 2).repeat_interleave(
+        hq // t.shape[2], dim=1).contiguous() for t in (q, k, v))
+    i = torch.arange(s, device=DEVICE)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    return _kernel_entry(
+        smoke, flush, "flash_window",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "none: the reference's kernel has no window",
+        _launches(smoke, f"prefill {TRINITY} S={CELL_PREFILL_S[-1]}",
+                  "flash_window"),
+        lambda: fa.flash_attention(q, k, v, window=w),
+        lambda: _window_plain(q, k, v, w),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+        "flash_window_kernel", 1, 4 * b * s * 2 * (hq + hkv) * hd,
+        4 * b * hq * hd * band,
+        {"b": b, "s": s, "window": w, "hq": hq, "hkv": hkv, "hd": hd,
+         "dtype": "float32"}, plain_reps=3,
+        library_note="SDPA with the band as a boolean mask, the kv heads "
+                     "repeated to the q heads")
 
 
 def _model_times(smoke, flush, arch) -> None:
@@ -3983,6 +4125,8 @@ def main() -> int:
          lambda: phase_moe_model(smoke, QWEN_MOE)),
         (f"17 {NEMOTRON} cut to {DEPTH_CUT[NEMOTRON]} layers at full width",
          lambda: phase_moe_model(smoke, NEMOTRON)),
+        (f"18 {TRINITY} cut to {DEPTH_CUT[TRINITY]} layers at full width",
+         lambda: phase_moe_model(smoke, TRINITY)),
         (f"11 {WHISPER} at full width and depth",
          lambda: phase_encdec_vlm(smoke, WHISPER)),
         (f"12 {PHI3V} at full width and depth",

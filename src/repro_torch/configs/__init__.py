@@ -25,7 +25,7 @@ ARCH_IDS = [
 
 # every architecture the port serves: the reference's ten and those with a
 # plain reference of their own (`src/plain_ref/`) in their place
-PORT_ARCH_IDS = ARCH_IDS + ["nemotron-3-nano-30b-a3b"]
+PORT_ARCH_IDS = ARCH_IDS + ["nemotron-3-nano-30b-a3b", "trinity-mini"]
 
 _MODULES = {
     "granite-3-8b": "granite_3_8b",
@@ -39,6 +39,7 @@ _MODULES = {
     "whisper-large-v3": "whisper_large_v3",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "nemotron-3-nano-30b-a3b": "nemotron_3_nano_30b_a3b",
+    "trinity-mini": "trinity_mini",
 }
 
 

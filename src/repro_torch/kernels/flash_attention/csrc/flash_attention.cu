@@ -12,7 +12,12 @@
 // native (q head h reads kv head h / g); the KV loop stops at the diagonal
 // and only tiles that cross it or the end of the keys are masked; the q
 // tile is the grid's slowest index and runs from the last (most keys) to
-// the first, so the heaviest CTAs of every head start first.
+// the first, so the heaviest CTAs of every head start first.  The fp32
+// route also has a sliding window (`flash_window_kernel`, the same body):
+// query i sees keys i - W < j <= i, a q tile's loop starts at the first key
+// tile its first row sees, so whole tiles below the band are never loaded
+// (the work is ~S (W + 64) a head, not S^2 / 2), and the tiles that cross
+// the band's lower edge are masked as the diagonal's are.
 //
 // === bf16: flash_wgmma_kernel (wgmma, TMA, a producer warpgroup) ===
 // What bounds it on the H100: operations.  Causal attention does
@@ -250,12 +255,17 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
-             int hq, int g, float scale, int q_sb, int q_ss, int q_sh,
-             int k_sb, int k_ss, int k_sh, int v_sb, int v_ss, int v_sh) {
+// The body of both fp32 kernels.  WINDOW: query i sees only the keys
+// i - window < j <= i, so a q tile's key loop starts at the tile that holds
+// its first row's first key, and the tiles that cross the band's lower edge
+// are masked besides those on the diagonal; without it `window` is unused
+// and the loop is the causal one.
+template <typename T, int HD, bool WINDOW>
+__device__ __forceinline__ void flash_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, int sq, int sk, int hq, int g, float scale, int q_sb,
+    int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb, int v_ss,
+    int v_sh, int window) {
   using C = Cfg<T, HD>;
   constexpr int E = C::E, W = C::W, NT = C::NT;
   constexpr int LDQK = C::LDQK, LDV = C::LDV;
@@ -277,10 +287,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // keys 0 .. min(sk, q0 + BQ) - 1 can be seen by this tile's rows
   const int k_end = min(sk, q0 + BQ);
   const int n_tiles = (k_end + BK - 1) / BK;
+  // and, in a window, none before q0 - window + 1 (the tile's first row's)
+  const int t_first = WINDOW ? max(0, q0 - window + 1) / BK : 0;
 
   load_tile<T, HD, BQ>(sQ, LDQK, q + (int64_t)b * q_sb + (int64_t)h * q_sh,
                        q_ss, q0, sq);
-  load_tile<T, HD, BK>(sK, LDQK, kbase, k_ss, 0, sk);
+  load_tile<T, HD, BK>(sK, LDQK, kbase, k_ss, t_first * BK, sk);
   cp_async_commit();
 
   const float sl2 = scale * kLog2e;
@@ -290,7 +302,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * BK;
     cp_async_wait<0>();
     __syncthreads();  // K_t (and Q) landed; every warp is done with V_{t-1}
@@ -342,8 +354,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // base-2 scores; element mask where the tile crosses the diagonal or
-    // the end of the keys.  s[j][e]: row r0 + 8 (e / 2), key 8j + 2t + e % 2
-    const bool edge = k0 + BK - 1 > q0 || k0 + BK > sk;
+    // the end of the keys (in a window, or the band's lower edge: a key at
+    // or below the last row's row - window).  s[j][e]: row r0 + 8 (e / 2),
+    // key 8j + 2t + e % 2
+    const bool edge = k0 + BK - 1 > q0 || k0 + BK > sk ||
+                      (WINDOW && k0 + window <= q0 + BQ - 1);
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -352,7 +367,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (edge) {
           const int row = q0 + r0 + 8 * (e / 2);
           const int col = k0 + 8 * j + 2 * tig + e % 2;
-          if (col > row || col >= sk) s[j][e] = -INFINITY;
+          if (col > row || col >= sk || (WINDOW && col + window <= row))
+            s[j][e] = -INFINITY;
         }
       }
 
@@ -463,12 +479,37 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// causal: query i sees keys j <= i
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
+             int hq, int g, float scale, int q_sb, int q_ss, int q_sh,
+             int k_sb, int k_ss, int k_sh, int v_sb, int v_ss, int v_sh) {
+  flash_body<T, HD, false>(q, k, v, out, sq, sk, hq, g, scale, q_sb, q_ss,
+                           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, 0);
+}
+
+// causal within a window: query i sees keys i - window < j <= i (a symbol
+// of its own, so that a device trace tells the two apart)
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out, int sq,
+                    int sk, int hq, int g, float scale, int q_sb, int q_ss,
+                    int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
+                    int v_ss, int v_sh, int window) {
+  flash_body<T, HD, true>(q, k, v, out, sq, sk, hq, g, scale, q_sb, q_ss,
+                          q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, window);
+}
+
 struct Args {
   const void *q, *k, *v;
   void* out;
   int batch, sq, sk, hq, g;
   float scale;
   int q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  int window;  // 0: causal
   cudaStream_t stream;
 };
 
@@ -476,12 +517,24 @@ struct Args {
 template <typename T, int HD>
 cudaError_t launch(const Args& a) {
   constexpr int bytes = Cfg<T, HD>::kBytes;
+  dim3 grid(a.hq, a.batch, (a.sq + BQ - 1) / BQ);
   // above 48 KB a block's shared memory must be opted into (per device, so
   // on every launch: it is a host-side attribute write)
+  if (a.window > 0) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        flash_window_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (attr != cudaSuccess) return attr;
+    flash_window_kernel<T, HD><<<grid, kThreads, bytes, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<T*>(a.out), a.sq, a.sk, a.hq,
+        a.g, a.scale, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
+        a.v_ss, a.v_sh, a.window);
+    return cudaGetLastError();
+  }
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return attr;
-  dim3 grid(a.hq, a.batch, (a.sq + BQ - 1) / BQ);
   flash_kernel<T, HD><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.out), a.sq, a.sk, a.hq,
@@ -1175,20 +1228,22 @@ extern "C" {
 
 // q: [B, Sq, Hq, hd]; k, v: [B, Sk, Hkv, hd], each with unit stride on hd
 // and the given element strides for b, s and h; out: [B, Sq, Hq, hd]
-// contiguous.  Causal: query i sees keys j <= i.  fp32 runs the mma.sync
-// kernel, bf16 the wgmma one (whose tensor maps need 16-byte aligned
-// pointers and strides).  Returns the CUDA error of the launch, or of
-// making its tensor maps (0 on success); the kernel runs on `stream`.
+// contiguous.  Causal: query i sees keys j <= i, and with `window` > 0 only
+// those with j > i - window (fp32 only: `flash_window_kernel`).  fp32 runs
+// the mma.sync kernel, bf16 the wgmma one (whose tensor maps need 16-byte
+// aligned pointers and strides).  Returns the CUDA error of the launch, or
+// of making its tensor maps (0 on success); the kernel runs on `stream`.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int dtype, int batch, int sq, int sk, int hq, int g,
                     int hd, float scale, int q_sb, int q_ss, int q_sh,
                     int k_sb, int k_ss, int k_sh, int v_sb, int v_ss,
-                    int v_sh, void* stream) {
+                    int v_sh, int window, void* stream) {
   if (batch < 1 || sq < 1 || sk < 1 || hq < 1 || g < 1 || hq % g != 0 ||
-      batch > 65535 || (sq + BQ - 1) / BQ > 65535)
+      batch > 65535 || (sq + BQ - 1) / BQ > 65535 || window < 0 ||
+      (window > 0 && dtype != kFloat32))
     return cudaErrorInvalidValue;
   Args a{q, k, v, out, batch, sq, sk, hq, g, scale,
-         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, window,
          static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (dtype == kFloat32) err = dispatch_hd<float>(a, hd);

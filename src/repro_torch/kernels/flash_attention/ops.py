@@ -23,9 +23,14 @@ The design notes are at the top of the source.
 runs `flash_attention_plain` for CPU tensors; on CUDA it never falls back
 (a build, tensor-map or launch failure raises).  Non-causal calls go to
 the plain version on every device, as the reference wrapper sends them to
-its oracle: the kernel is causal by design.  The reference wrapper
-transposes to [B, H, S, hd] and pads S to the block size; the kernels read
-the model's layout through strides and mask the ragged edge themselves.
+its oracle: the kernels are causal by design.  A causal call may also
+take a sliding `window` W >= 1: query i then sees keys i - W < j <= i
+(q and k from row 0 of one sequence, Sq == Sk).  It runs on its own
+fp32 kernel, `flash_window_kernel`, which skips the key tiles below the
+band; bf16 has no windowed kernel and refuses one.  The reference
+wrapper transposes to [B, H, S, hd] and pads S to the block size; the
+kernels read the model's layout through strides and mask the ragged edge
+themselves.
 """
 from __future__ import annotations
 
@@ -41,16 +46,16 @@ HEAD_DIMS = (16, 32, 64, 96, 128)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          scale: float | None = None):
+                          scale: float | None = None, window: int = 0):
     """The plain torch version: the reference oracle (the wrapper's padding
     and slicing leave the result unchanged).  q: [B,Sq,Hq,hd];
     k,v: [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd]."""
-    return attention_ref(q, k, v, causal=causal, scale=scale)
+    return attention_ref(q, k, v, causal=causal, scale=scale, window=window)
 
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = ([_c_ptr] * 4 + [_c_int] * 7 + [ctypes.c_float]
-             + [_c_int] * 9 + [_c_ptr])
+             + [_c_int] * 10 + [_c_ptr])
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -86,18 +91,37 @@ def _check_cuda_inputs(q, k, v):
                              "aligned rows and int32 strides")
 
 
+def _check_window(q, k, causal: bool, window) -> None:
+    if not isinstance(window, int) or window < 0:
+        raise ValueError(f"window {window!r}: a whole number of keys >= 1, "
+                         f"or 0 for none")
+    if window and not causal:
+        raise ValueError("a window bounds causal attention only")
+    if window and q.shape[1] != k.shape[1]:
+        raise ValueError(f"a window needs q and k from row 0 of one "
+                         f"sequence (Sq == Sk); got {q.shape[1]} and "
+                         f"{k.shape[1]}")
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: float | None = None):
+                    scale: float | None = None, window: int = 0):
     """q: [B,Sq,Hq,hd]; k,v: [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd] in q's dtype.
-    Query i sees keys j <= i; fp32 accumulation.  Raises under autograd on
-    the kernel route (causal), on every device, as the reference does."""
+    Query i sees keys j <= i, and with `window` W > 0 (causal, Sq == Sk,
+    fp32 on CUDA) only those with j > i - W; fp32 accumulation.  Raises
+    under autograd on the kernel route (causal), on every device, as the
+    reference does."""
+    _check_window(q, k, causal, window)
     if causal:
         _build.require_no_grad("flash_attention", "attn_impl", q, k, v)
     if not causal or q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_cuda_inputs(q, k, v)
+    if window and q.dtype != torch.float32:
+        raise TypeError(f"a window runs on the fp32 kernel only; got "
+                        f"{q.dtype}")
     b, sq, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
@@ -106,11 +130,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     rc = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPE_CODE[q.dtype], b, sq, sk, hq, hq // hkv, hd, float(scale),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], window,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_attention", rc)
     flash_attention.launches += 1
+    flash_attention.window_launches += bool(window)
     return out
 
 
 flash_attention.launches = 0   # kernel launches since the last reset
+flash_attention.window_launches = 0     # of them, `flash_window_kernel`'s

@@ -7,8 +7,10 @@ import torch
 
 
 def attention_ref(q, k, v, *, causal: bool = True,
-                  scale: float | None = None):
-    """q: [B,Sq,Hq,hd]; k,v: [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd] (q.dtype)."""
+                  scale: float | None = None, window: int = 0):
+    """q: [B,Sq,Hq,hd]; k,v: [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd] (q.dtype).
+    Causal: query i sees keys j <= i, and with `window` W > 0 only those
+    with j > i - W."""
     sq, hq, hd = q.shape[1:]
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -17,8 +19,11 @@ def attention_ref(q, k, v, *, causal: bool = True,
     vr = v.repeat_interleave(g, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * scale
     if causal:
-        mask = (torch.arange(sk, device=q.device)[None, :]
-                <= torch.arange(sq, device=q.device)[:, None])
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        mask = kpos <= qpos
+        if window:
+            mask = mask & (kpos > qpos - window)
         s = s.masked_fill(~mask[None, None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)

@@ -67,9 +67,13 @@ class SSMConfig:
 
 
 # the sub-layer of a `layer_pattern` character: the blocks of nemotron-h's
-# `hybrid_override_pattern`, one mixer each (Mamba2, MoE, attention)
+# `hybrid_override_pattern`, one mixer each (Mamba2, MoE, attention); and
+# afmoe's layers, attention and an FFN each: sliding-window attention
+# ("swa", the config's `sliding_window`) before a dense FFN (d) or MoE (e),
+# full attention before MoE (F)
 PATTERN_LAYERS = {"M": ("mamba", "none"), "E": ("none", "moe"),
-                  "*": ("attn", "none")}
+                  "*": ("attn", "none"), "d": ("swa", "dense"),
+                  "e": ("swa", "moe"), "F": ("attn", "moe")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +96,16 @@ class ModelConfig:
     norm_eps: float = 1e-6          # every RMSNorm's
     use_rope: bool | None = None    # None: every family but encdec
     tie_embeddings: bool = False
+    # afmoe: the "swa" layers' window (keys i - W < j <= i); full layers
+    # without rotary embedding (NoPE), the window layers with use_rope's;
+    # the attention output gated by sigmoid(x W_gate) over the heads; a
+    # norm after each mixer and FFN before its residual add (sandwich
+    # norms); the embeddings times sqrt(d_model) (muP)
+    sliding_window: int = 0
+    nope_full: bool = False
+    attn_gate: bool = False
+    post_norms: bool = False
+    mup_embed: bool = False
     # family extensions
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
@@ -147,15 +161,28 @@ class ModelConfig:
             use_rope=(self.family != "encdec" if self.use_rope is None
                       else self.use_rope), bias=self.attn_bias,
             norm_eps=self.norm_eps,
-            attn_chunk=self.attn_chunk, attn_unroll=self.attn_unroll)
+            attn_chunk=self.attn_chunk, attn_unroll=self.attn_unroll,
+            gate=self.attn_gate)
+
+    def mixer_spec(self, mixer: str) -> layers.AttentionSpec:
+        """The attention spec of a plan's mixer: "swa" the sliding window
+        (with `attn_spec`'s rotary embedding), "attn" `attn_spec`, without
+        rotary embedding under `nope_full`."""
+        spec = self.attn_spec
+        if mixer == "swa":
+            return dataclasses.replace(spec, window=self.sliding_window)
+        if self.nope_full:
+            return dataclasses.replace(spec, use_rope=False)
+        return spec
 
     def layer_plan(self):
         """Returns (n_groups, per-group sub-layer plan).
 
-        Each sub-layer is (mixer, ffn) with mixer in {attn, mamba, none} and
-        ffn in {dense, moe, none}.  A `layer_pattern` is the plan, one
-        sub-layer a character (`PATTERN_LAYERS`: nemotron-h's single-mixer
-        blocks), repeated n_layers / len times.  Otherwise homogeneous
+        Each sub-layer is (mixer, ffn) with mixer in {attn, swa, mamba,
+        none} and ffn in {dense, moe, none}.  A `layer_pattern` is the
+        plan, one sub-layer a character (`PATTERN_LAYERS`: nemotron-h's
+        single-mixer blocks, afmoe's window and full layers), repeated
+        n_layers / len times.  Otherwise homogeneous
         families repeat a one-sub-layer plan n_layers times (the VLM takes
         the dense plan; the encoder-decoder's is its decoder's); the MoE
         family a plan of `moe.every` sub-layers; the hybrid (jamba)
@@ -242,6 +269,8 @@ def _attn_table(cfg: ModelConfig, cross: bool = False) -> dict:
     if cfg.qk_norm and not cross:
         t["q_norm"] = ParamSpec((cfg.head_dim,), (None,), "ones")
         t["k_norm"] = ParamSpec((cfg.head_dim,), (None,), "ones")
+    if cfg.attn_gate and not cross:
+        t["w_gate"] = ParamSpec((d, hq), ("embed", "q_proj"))
     return t
 
 
@@ -328,10 +357,12 @@ def _sublayer_table(cfg: ModelConfig, mixer: str, ffn: str,
     t = {}
     if mixer != "none":
         t.update(_norm_table(cfg, "ln1"))
-    if mixer == "attn":
+    if mixer in ("attn", "swa"):
         t["attn"] = _attn_table(cfg)
     elif mixer == "mamba":
         t["mamba"] = _mamba_table(cfg)
+    if mixer != "none" and cfg.post_norms:
+        t.update(_norm_table(cfg, "ln1_post"))
     if cross:
         t.update(_norm_table(cfg, "lnx"))
         t["xattn"] = _attn_table(cfg, cross=True)
@@ -341,6 +372,8 @@ def _sublayer_table(cfg: ModelConfig, mixer: str, ffn: str,
             t["mlp"] = _mlp_table(cfg)
         else:
             t["moe"] = _moe_table(cfg)
+        if cfg.post_norms:
+            t.update(_norm_table(cfg, "ln2_post"))
     return t
 
 

@@ -26,6 +26,14 @@ Attention paths:
     sequence-sharded bodies under a mesh (cross: the non-causal body)
 `attn_impl="xla"` selects the plain torch math, `"pallas"` the Hopper
 kernels; the names are the reference's, so configs map one-to-one.
+
+A sliding window (`AttentionSpec.window` W, afmoe's window layers): query
+i sees keys i - W < j <= i on every route (the band mask, or the flash
+kernel's windowed instance), and the layer's cache is a ring of
+min(max_len, W) rows, position p at row p % W: the prefill writes its
+last min(S, W) positions there, a decode step its one, and attends the
+ring's min(pos + 1, W) filled rows (softmax does not depend on the keys'
+order).  No mesh path holds a ring: a window under a mesh raises.
 """
 from __future__ import annotations
 
@@ -110,6 +118,8 @@ class AttentionSpec:
     norm_eps: float = 1e-6       # the qk-norm's
     attn_chunk: int = 0          # q-block size for chunked attention (0=off)
     attn_unroll: bool = False    # kept for config parity; eager loops unroll
+    window: int = 0              # keys i - window < j <= i (0: all j <= i)
+    gate: bool = False           # output o * sigmoid(x W_gate) (afmoe)
 
     @property
     def q_dim(self) -> int:
@@ -183,38 +193,62 @@ def _chunked_sdpa(q, k, v, spec: AttentionSpec, q_offset, causal=True):
         if causal:
             qpos = q_offset + start + torch.arange(qb.shape[1],
                                                    device=q.device)[:, None]
-            mask = (kpos <= qpos)[None, None, None]
+            mask = _band(kpos, qpos, spec.window)[None, None, None]
         outs.append(_sdpa(qb, k, v, spec, mask))
     return torch.cat(outs, dim=1)
+
+
+def _band(kpos, qpos, window: int):
+    """Which keys each query sees: j <= i, and j > i - window where the
+    layer has one."""
+    mask = kpos <= qpos
+    return mask & (kpos > qpos - window) if window else mask
 
 
 def _attend(q, k, v, spec: AttentionSpec, attn_impl: str, *, causal: bool,
             counter: str | None = None) -> torch.Tensor:
     """Full-sequence attention, q:[B,Sq,Hq,hd] over k,v:[B,Sk,Hkv,hd] from
-    row 0 (causal: Sq == Sk).  The flash kernel under "pallas" when causal,
-    before `attn_chunk` (each call adds 1 to `counter`), else
+    row 0 (causal: Sq == Sk; within `spec.window` where it has one).  The
+    flash kernel under "pallas" when causal, before `attn_chunk` (each
+    call adds 1 to `counter`, or to "attn.window_flash" in a window), else
     `_chunked_sdpa` where `attn_chunk` splits q, else `_sdpa`.  The mesh
     rule is the caller's: the prefill passes "xla" under a mesh, the
     cache-free forward keeps the kernel there."""
     s = q.shape[1]
+    window = spec.window if causal else 0
     if attn_impl == "pallas" and causal:
         if counter:
-            spans.count(counter, 1)
-        return fa_ops.flash_attention(q, k, v, causal=True, scale=spec.scale)
+            spans.count("attn.window_flash" if window else counter, 1)
+        return fa_ops.flash_attention(q, k, v, causal=True, scale=spec.scale,
+                                      window=window)
     if spec.attn_chunk and s > spec.attn_chunk:
         return _chunked_sdpa(q, k, v, spec, 0, causal=causal)
     return _sdpa(q, k, v, spec,
-                 causal_mask(s, s, device=q.device) if causal else None)
+                 causal_mask(s, s, device=q.device, window=window)
+                 if causal else None)
 
 
 def _local_cached_attention(q, k_cache, v_cache, spec, cache_pos):
-    """Single-device decode/prefill attention over a cache."""
+    """Single-device decode/prefill attention over a cache; a window's
+    (one decode position) over the ring's filled rows."""
     s = q.shape[1]
     s_max = k_cache.shape[1]
-    qi = cache_pos + torch.arange(s, device=q.device)[:, None]
     ki = torch.arange(s_max, device=q.device)[None, :]
-    valid = (ki <= qi)[None, None, None]
+    if spec.window:
+        assert s == 1, "a ring is read by one decode position at a time"
+        valid = (ki < ring_length(cache_pos, spec.window))[None, None, None]
+    else:
+        qi = cache_pos + torch.arange(s, device=q.device)[:, None]
+        valid = (ki <= qi)[None, None, None]
     return _sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), spec, valid)
+
+
+def ring_length(cache_pos, window: int):
+    """The filled rows of a window's ring once position `cache_pos` is
+    written, min(pos + 1, W): on the device where `cache_pos` is."""
+    if isinstance(cache_pos, torch.Tensor):
+        return (cache_pos + 1).clamp(max=window)
+    return min(cache_pos + 1, window)
 
 
 def _n_seq_shards(mesh, rules) -> int:
@@ -308,12 +342,20 @@ def sharded_cache_attention(q, k_cache, v_cache, spec: AttentionSpec,
 
 
 def _write_rows(cache: torch.Tensor, start: int, new: torch.Tensor,
-                cache_pos) -> None:
+                cache_pos, window: int = 0) -> None:
     """Write the rows [cache_pos, cache_pos + s) of `new` that fall in
     this local slice (global rows [start, start + len)) in place.  A
     `cache_pos` held on the device (a one-element int tensor; one device,
     start 0) writes them by `index_copy_` at the rows it gives, with no
-    host read."""
+    host read.  A window's ring (one device) keeps the last W of them,
+    position p at row p % W."""
+    if window:
+        n = new.shape[1]
+        keep = min(n, window)
+        rows = (cache_pos + (n - keep) + torch.arange(
+            keep, device=cache.device)) % window
+        cache.index_copy_(1, rows, new[:, n - keep:].to(cache.dtype))
+        return
     if isinstance(cache_pos, torch.Tensor):
         rows = cache_pos + torch.arange(new.shape[1], device=cache.device)
         cache.index_copy_(1, rows, new.to(cache.dtype))
@@ -472,6 +514,11 @@ def attention(params, x, spec: AttentionSpec, positions,
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+    if spec.window and mesh is not None:
+        raise NotImplementedError(
+            "sliding-window attention under a mesh: no sharded ring cache, "
+            "band mask in the sequence-sharded merge or windowed head "
+            "split is written; serve it on one device")
     rules = partition.active_rules()
     whole = spec
     spec, q_heads, heads = tp_heads(spec, mesh, tp)
@@ -510,7 +557,8 @@ def attention(params, x, spec: AttentionSpec, positions,
         new_cache = None
     elif kv_cache is None:
         q, k, v = _project_qkv(params, x, spec, positions)
-        out = _attend(q, k, v, spec, attn_impl, causal=spec.causal)
+        with _window_span(spec):
+            out = _attend(q, k, v, spec, attn_impl, causal=spec.causal)
         new_cache = None
     else:
         q, k, v = _project_qkv(params, x, spec, positions)
@@ -531,30 +579,40 @@ def attention(params, x, spec: AttentionSpec, positions,
             # dynamic_update_slice; copy_ casts to the cache dtype
             start = (local_rows(k_cache.shape[1], mesh, seq_flat)[0]
                      if seq_flat else 0)
-            _write_rows(partition.local(k_cache), start, k_all, cache_pos)
-            _write_rows(partition.local(v_cache), start, v_all, cache_pos)
-            if s > 1:
-                # prefill from row 0 over the fresh k/v (== cache content)
-                out = _attend(q, k, v, spec,
-                              attn_impl if mesh is None else "xla",
-                              causal=True, counter="attn.prefill_flash")
-            elif attn_impl == "pallas":
-                if seq_flat:
-                    kc = _gathered_seq(k_cache, mesh, seq_flat, heads)
-                    vc = _gathered_seq(v_cache, mesh, seq_flat, heads)
+            _write_rows(partition.local(k_cache), start, k_all, cache_pos,
+                        spec.window)
+            _write_rows(partition.local(v_cache), start, v_all, cache_pos,
+                        spec.window)
+            with _window_span(spec):
+                if s > 1:
+                    # prefill from row 0 over the fresh k/v (== the cache
+                    # content, or its ring's last W rows)
+                    out = _attend(q, k, v, spec,
+                                  attn_impl if mesh is None else "xla",
+                                  causal=True, counter="attn.prefill_flash")
+                elif attn_impl == "pallas":
+                    if seq_flat:
+                        kc = _gathered_seq(k_cache, mesh, seq_flat, heads)
+                        vc = _gathered_seq(v_cache, mesh, seq_flat, heads)
+                    else:
+                        kc = partition.local(k_cache)[:, :, heads]
+                        vc = partition.local(v_cache)[:, :, heads]
+                    length = (ring_length(cache_pos, spec.window)
+                              if spec.window else cache_pos + s)
+                    out = da_ops.decode_attention(
+                        q[:, 0], kc, vc, length, scale=spec.scale)[:, None]
+                elif mesh is not None and rules is not None:
+                    out = every_head(lambda qq, sp: sharded_cache_attention(
+                        qq, k_cache, v_cache, sp, cache_pos, mesh, rules), q)
                 else:
-                    kc = partition.local(k_cache)[:, :, heads]
-                    vc = partition.local(v_cache)[:, :, heads]
-                out = da_ops.decode_attention(
-                    q[:, 0], kc, vc, cache_pos + s, scale=spec.scale)[:, None]
-            elif mesh is not None and rules is not None:
-                out = every_head(lambda qq, sp: sharded_cache_attention(
-                    qq, k_cache, v_cache, sp, cache_pos, mesh, rules), q)
-            else:
-                out = _local_cached_attention(q, k_cache, v_cache, spec,
-                                              cache_pos)
+                    out = _local_cached_attention(q, k_cache, v_cache, spec,
+                                                  cache_pos)
         new_cache = kv_cache
     out = out.reshape(b, s, spec.q_dim)
+    if spec.gate:
+        # afmoe's gated output: each head's o times sigmoid(x W_gate)
+        out = out * torch.sigmoid(torch.einsum(
+            "bsd,dh->bsh", x, params["w_gate"].to(x.dtype)))
     y = torch.einsum("bsh,hd->bsd", out, params["wo"].to(x.dtype))
     y = partition.tp_leave(y, mesh, tp, sp)
     y = partition.constrain(y, ("batch", "seq", "embed_act"))
@@ -566,11 +624,18 @@ def attention(params, x, spec: AttentionSpec, positions,
     return y, new_cache
 
 
-def causal_mask(sq: int, sk: int, offset: int = 0,
-                device=None) -> torch.Tensor:
+def causal_mask(sq: int, sk: int, offset: int = 0, device=None,
+                window: int = 0) -> torch.Tensor:
     qi = torch.arange(sq, device=device)[:, None] + offset
     ki = torch.arange(sk, device=device)[None, :]
-    return (ki <= qi)[None, None, None]
+    return _band(ki, qi, window)[None, None, None]
+
+
+def _window_span(spec: AttentionSpec):
+    """The device span `attn.window` around a window layer's attention
+    core (none for a full layer)."""
+    return spans.span("attn.window", device=True) if spec.window \
+        else spans.NULL
 
 
 def cross_kv_from_encoder(params, enc: torch.Tensor, spec: AttentionSpec,

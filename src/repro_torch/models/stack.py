@@ -196,7 +196,15 @@ def _remat(fn, cfg: ModelConfig):
 
 # the span of each sub-layer's mixer (`repro_torch.obs.spans`); a "none"
 # mixer (a block that is only an FFN) has none
-_SPAN = {"attn": "layer.attn", "mamba": "layer.ssm"}
+_SPAN = {"attn": "layer.attn", "swa": "layer.attn", "mamba": "layer.ssm"}
+
+
+def _post_norm(sub, prefix, y, cfg: ModelConfig, par=None):
+    """y, or with sandwich norms (afmoe: `ln1_post` after the mixer,
+    `ln2_post` after the FFN) its norm, before the residual add."""
+    if f"{prefix}_w" not in sub:
+        return y
+    return _norm(sub, prefix, y, cfg, par)
 
 
 def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
@@ -219,8 +227,8 @@ def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
           else spans.NULL):
         if mixer == "none":
             y = None
-        elif mixer == "attn":
-            spec = cfg.attn_spec
+        elif mixer in ("attn", "swa"):
+            spec = cfg.mixer_spec(mixer)
             if not causal:
                 spec = dataclasses.replace(spec, causal=False)
             # attention writes the new K/V into the cache views itself
@@ -253,7 +261,7 @@ def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
                     else:
                         partition.store_batch(view, new, batch_axes)
         if y is not None:
-            h = h + y
+            h = h + _post_norm(sub, "ln1_post", y, cfg, par)
     if "xattn" in sub:
         attn_tp = tp.get("attn", ())
         if enc_out is not None:
@@ -275,16 +283,17 @@ def _sublayer(sub, cfg: ModelConfig, plan_item, h, positions, *,
             _norm(sub, "lnx", h, cfg, par), attn_tp, par)
     if ffn == "dense":
         with spans.span("layer.mlp", device=True):
-            h = h + _seq_parallel(lambda x, t, s: layers.mlp(
+            y = _seq_parallel(lambda x, t, s: layers.mlp(
                 sub["mlp"], x, cfg.mlp_kind, mesh, t, s),
                 _norm(sub, "ln2", h, cfg, par), tp.get("mlp", ()), par)
+            h = h + _post_norm(sub, "ln2_post", y, cfg, par)
     elif ffn == "moe":
         sharded = () if mesh is None else (mesh, batch_axes, sp)
         with spans.span("layer.moe", device=True):
             y, aux = moe_mod.moe_ffn(sub["moe"],
                                      _norm(sub, "ln2", h, cfg, par),
                                      moe_spec(cfg), *sharded)
-            h = h + y
+            h = h + _post_norm(sub, "ln2_post", y, cfg, par)
     return h, aux
 
 
@@ -515,12 +524,18 @@ def _vocab_tp(par) -> tuple:
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, par=None):
-    """The tokens' embeddings.  Under the vocab's tensor parallelism a
+    """The tokens' embeddings, times sqrt(d_model) under `mup_embed`
+    (afmoe's muP input scale).  Under the vocab's tensor parallelism a
     rank holds rows [v0, v0 + n) of the table: it looks up the tokens
     that fall there, zeros for the rest, and the ranks' lookups sum (one
     term is not zero, so the sum is the row exactly).  Under sequence
     parallelism (`par.sp`) this rank's positions: the sum is
     reduce-scattered to them (or, with the table whole, they are cut)."""
+    e = _lookup(params, cfg, tokens, par)
+    return e * cfg.d_model ** 0.5 if cfg.mup_embed else e
+
+
+def _lookup(params, cfg: ModelConfig, tokens, par=None):
     tok = _top(params, "embed", par)["tok"]
     tp = _vocab_tp(par)
     sp = () if par is None else par.sp
@@ -768,9 +783,11 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     for i, (mixer, _) in enumerate(plan):
         if mixer == "none":
             continue
-        if mixer == "attn":
-            kv_shape = (n_groups, batch, max_len, cfg.n_kv_heads,
-                        cfg.head_dim)
+        if mixer in ("attn", "swa"):
+            # a window layer's K/V: a ring of its last W positions
+            rows = (min(max_len, cfg.sliding_window)
+                    if mixer == "swa" and cfg.sliding_window else max_len)
+            kv_shape = (n_groups, batch, rows, cfg.n_kv_heads, cfg.head_dim)
             group[f"sub{i}"] = {"k": (kv_shape, cfg.kv_dtype),
                                 "v": (kv_shape, cfg.kv_dtype)}
         else:
@@ -803,7 +820,7 @@ def cache_axis_specs(cfg: ModelConfig, enc_len: int = 0) -> dict:
     for i, (mixer, _) in enumerate(plan):
         if mixer == "none":
             continue
-        if mixer == "attn":
+        if mixer in ("attn", "swa"):
             ax = ("layers", "batch", "seq_kv", "kv_heads_kv", None)
             sub = {"k": ax, "v": ax}
         else:
